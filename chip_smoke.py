@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Needs one NVIDIA GPU (Hopper, sm_90a), nvcc and a C++ compiler; imports no
-jax.  It builds the CUDA kernel K1 (wfa_tpu_torch/ops/csrc/wfa_distance.cu)
-from the sources, holds it against its plain PyTorch version on random
-pairs, drives align_pairs(backend='cuda') on the golden score sets, and runs
-the HiFi banded distance workload (400 pairs of ~14 kbp, W=512, band 25,
-penalties 2,3,1) through the kernel alone, the plain version and align_pairs,
-with its times.  Every phase prints one line with its seconds; any failure
-ends the run with a nonzero exit code.  The last line is
+jax and nothing of wfa_tpu.  It builds the CUDA kernels from the sources
+(K1 and K2: wfa_tpu_torch/ops/csrc/wfa_distance.cu; K3: wfa_traceback.cu),
+holds each against its plain PyTorch version on random pairs, drives
+align_pairs(backend='cuda') on the golden score sets in distance and CIGAR
+mode, and runs the HiFi banded workload (400 pairs of ~14 kbp, W=512, band
+25, penalties 2,3,1, max_steps 3000) in distance and CIGAR mode through the
+kernels alone, their plain versions and align_pairs, with times.  Every
+phase prints one line with its seconds; any failure ends the run with a
+nonzero exit code.  The line before the last lists every kernel with its
+launches on the main paths, error against its plain version, times and
+bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -25,6 +29,22 @@ ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 HIFI_REPS = 8
 
+# H100 SXM peaks (NVIDIA data sheet, as tabled in the repository's
+# measurement notes): 3.35 TB/s of HBM; 67 TFLOP/s float32 outside the
+# tensor cores is 128 FP32 lanes x 2 (an FMA counts 2) per SM and clock,
+# and an SM has 64 INT32 lanes, so 67/4 T int32 ops/s.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4
+# Integer ops one cell (score x window diagonal) needs at least: I 8 (two
+# +1, two packs of 2, max, >> 2), D 6, M 10 (+1, three packs, two max, >> 2),
+# and one 16-base comparison 8 (two de-phased loads 4, xor, clz, >> 1, add).
+# K2 adds the choice nibble: 6 (op test 2, two extend bits 2, shift, or).
+# K3 does about 12 per walk step (nibble extract 2, branch tests 3, score,
+# diagonal, state updates 4, op append 3).
+OPS_PER_CELL = 32
+OPS_PER_CELL_CIGAR = OPS_PER_CELL + 6
+OPS_PER_WALK_STEP = 12
+
 
 def phase(name: str, t0: float, detail: str) -> None:
     print(f"[{name}] {time.perf_counter() - t0:.2f}s {detail}", flush=True)
@@ -33,6 +53,13 @@ def phase(name: str, t0: float, detail: str) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time for the work: bytes over HBM rate vs int ops over peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def main() -> int:
@@ -44,14 +71,14 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from wfa_tpu import native
-    from wfa_tpu.ops.packing import pack_batch
-    from wfa_tpu.types import Penalties
-    from wfa_tpu.utils.io import read_seq_file
-    from wfa_tpu_torch import AlignmentOptions, align_pairs
-    from wfa_tpu_torch.ops import _build, engine_cuda, engine_torch
+    from wfa_tpu_torch import AlignmentOptions, Penalties, align_pairs, native
+    from wfa_tpu_torch.ops import _build, engine_cuda, engine_torch, traceback_torch
+    from wfa_tpu_torch.ops.packing import pack_batch
+    from wfa_tpu_torch.schedule import build_schedule
     from wfa_tpu_torch.utils.device_query import describe
+    from wfa_tpu_torch.utils.io import read_seq_file
     from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs
+    from wfa_tpu_torch.utils.verification import affine_score, check_cigar
 
     dev = torch.device("cuda", 0)
 
@@ -75,6 +102,19 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, out
 
+    def cigar_configs(pen, max_steps, width, band):
+        """The CUDA route's CIGAR geometry (aligner._tier_geometry_cuda)."""
+        score_cap = build_schedule(pen, max_steps, None).unfinished_score + 1
+        cfg = engine_torch.EngineConfig(
+            pen, max_steps, width, band, score_limit=score_cap - 1,
+            compute_cigar=True,
+        )
+        tb = traceback_torch.TracebackConfig(
+            pen, width, score_cap, banded=band > 0,
+            lo_pad=engine_torch.lo_pad(score_cap) if band > 0 else 0,
+        )
+        return cfg, tb
+
     # ---- 1. Card ----
     t0 = time.perf_counter()
     smi = subprocess.run(
@@ -85,17 +125,22 @@ def main() -> int:
     phase("card", t0, f"{describe()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    # ---- 2. Build ----
+    # ---- 2. Build: one nvcc per source, all at once ----
     t0 = time.perf_counter()
-    _build.load_library()
-    log = _build.library_path().with_suffix(".log").read_text()
+    libs = _build.build_all()
+    for name in libs:
+        _build.load_library(name)
     ptxas = "; ".join(
-        ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-        if "registers" in ln or "spill" in ln
+        f"{name}: " + ", ".join(
+            ln.split(":", 1)[-1].strip()
+            for ln in so.with_suffix(".log").read_text().splitlines()
+            if "registers" in ln or "spill" in ln
+        )
+        for name, so in libs.items()
     )
     t_nvcc = time.perf_counter() - t0
-    # The host library: packing, readers and the CPU fallback of align_pairs.
-    require(_build.ensure_native(), "wfa_tpu's native host library did not build")
+    # The host library: packing, readers, the CPU fallback, CIGAR decoding.
+    require(_build.ensure_native(), "the native host library did not build")
     threads = native.get_lib().wfa_cpu_num_threads()
     phase("build", t0, f"nvcc sm_90a {t_nvcc:.2f}s: {ptxas}; native host "
           f"library {time.perf_counter() - t0 - t_nvcc:.2f}s, {threads} CPU "
@@ -104,13 +149,12 @@ def main() -> int:
     # ---- 3. K1 against the plain version on the card ----
     t0 = time.perf_counter()
     rng = np.random.default_rng(20261016)
-    max_err = 0
+    max_err = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0}
     n_cases = n_lanes = 0
     prep_s = k1_s = plain_s = 0.0
+    pens = (Penalties(2, 3, 1), Penalties(1, 0, 1), Penalties(4, 1, 2))
     cases = [
-        (band, pen, w)
-        for band in (-1, 10, 25)
-        for pen in (Penalties(2, 3, 1), Penalties(1, 0, 1), Penalties(4, 1, 2))
+        (band, pen, w) for band in (-1, 10, 25) for pen in pens
         for w in (128, 512, 1024)
     ] + [(band, Penalties(70, 6, 2), 128) for band in (-1, 10, 25)]
     for band, pen, w in cases:
@@ -131,7 +175,7 @@ def main() -> int:
                 f"finished differs: band={band} pen={pen} W={w}")
         err = (got["distance"] - want["distance"]).abs().max().item()
         require(err == 0, f"distance differs by {err}: band={band} pen={pen} W={w}")
-        max_err = max(max_err, err)
+        max_err["wfa_distance"] = max(max_err["wfa_distance"], err)
         n_cases += 1
         n_lanes += len(pairs)
     for band in (-1, 25):
@@ -149,7 +193,7 @@ def main() -> int:
 
     # ---- 4. Exact goldens through align_pairs(backend='cuda') ----
     t0 = time.perf_counter()
-    launches0 = engine_cuda.LAUNCHES
+    launches0 = engine_cuda.LAUNCHES["wfa_distance"]
     utest = read_seq_file(DATA / "wfa.utest.seq")
     golden_runs = []
     for tag, pen in (("p0", Penalties(1, 2, 1)), ("p1", Penalties(3, 1, 4)),
@@ -175,7 +219,8 @@ def main() -> int:
         on_card = sum(r.finished_on_accelerator for r in res)
         shares.append(f"{name} {on_card}/{len(res)} on card "
                       f"({time.perf_counter() - t1:.2f}s)")
-    require(engine_cuda.LAUNCHES > launches0, "golden runs launched no kernel")
+    require(engine_cuda.LAUNCHES["wfa_distance"] > launches0,
+            "golden runs launched no kernel")
     phase("goldens", t0, "all scores equal; " + ", ".join(shares))
 
     # ---- 5. HiFi banded distance: 400 x ~14 kbp, W=512, band 25 ----
@@ -185,52 +230,233 @@ def main() -> int:
     pats = hifi.patterns * HIFI_REPS
     txts = hifi.texts * HIFI_REPS
     n = len(pats)
-    args = tensors(list(zip(pats, txts)))
+    hifi_args = tensors(list(zip(pats, txts)))
     cfg = engine_torch.EngineConfig(Penalties(2, 3, 1), 3000, 512, 25)
-    out = engine_cuda.align_batch_cuda(cfg, *args)   # warm-up
+    out = engine_cuda.align_batch_cuda(cfg, *hifi_args)   # warm-up
     torch.cuda.synchronize()
-    k_ms, out = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg, *args), 5)
+    k1_ms, out = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg, *hifi_args), 5)
     dist = out["distance"].cpu().numpy()
     require(bool(out["finished"].all()), "HiFi: unfinished pairs on K1")
     require(dist.tolist() == ref["distance"] * HIFI_REPS,
             "HiFi: K1 distances differ from the stored reference")
-    p_ms, plain = cuda_ms(lambda: engine_torch.align_batch_device(cfg, *args), 1)
+    k1_plain_ms, plain = cuda_ms(
+        lambda: engine_torch.align_batch_device(cfg, *hifi_args), 1)
     err = (plain["distance"] - out["distance"]).abs().max().item()
     require(err == 0 and torch.equal(plain["finished"], out["finished"]),
             "HiFi: plain version differs from K1")
-    max_err = max(max_err, err)
+    max_err["wfa_distance"] = max(max_err["wfa_distance"], err)
 
     opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=3000,
                             band=25, band_width=512, backend="cuda")
     align_pairs(pats[:8], txts[:8], opts)            # warm-up
     torch.cuda.synchronize()
-    engine_cuda.LAUNCHES = 0
+    for k in engine_cuda.LAUNCHES:
+        engine_cuda.LAUNCHES[k] = 0
     t1 = time.perf_counter()
     res = align_pairs(pats, txts, opts)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t1
-    launches = engine_cuda.LAUNCHES
-    require(launches > 0, "align_pairs(backend='cuda') launched no kernel")
+    k1_launches = engine_cuda.LAUNCHES["wfa_distance"]
+    require(k1_launches > 0, "align_pairs(backend='cuda') launched no K1")
     require([r.error for r in res] == ref["distance"] * HIFI_REPS,
             "HiFi: align_pairs distances differ from the stored reference")
     require(all(r.finished_on_accelerator for r in res),
             "HiFi: align_pairs left pairs to the CPU")
     phase("hifi", t0,
-          f"{n} pairs: K1 {k_ms:.3f} ms ({n / k_ms * 1e3:.1f} aln/s), "
-          f"plain {p_ms:.3f} ms ({n / p_ms * 1e3:.1f} aln/s), "
+          f"{n} pairs: K1 {k1_ms:.3f} ms ({n / k1_ms * 1e3:.1f} aln/s), "
+          f"plain {k1_plain_ms:.3f} ms ({n / k1_plain_ms * 1e3:.1f} aln/s), "
           f"align_pairs {e2e_s * 1e3:.3f} ms ({n / e2e_s:.1f} aln/s), "
-          f"{launches} launches; [{smi}]")
+          f"launches {dict(engine_cuda.LAUNCHES)}; [{smi}]")
 
-    print(json.dumps({"kernels": [{
-        "name": "wfa_distance",
-        "route": "cuda",
-        "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
-        "replaces": "wfa_tpu/ops/engine_pallas.py:804",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }]}), flush=True)
+    # ---- 6. K2 + K3 against the plain versions on the card ----
+    t0 = time.perf_counter()
+    n_cases = n_lanes = n_walks = 0
+    cases = [
+        (band, pen, w) for band in (-1, 10, 25) for pen in pens
+        for w in (128, 512)
+    ] + [(band, Penalties(70, 6, 2), 128) for band in (-1, 10, 25)]
+    for band, pen, w in cases:
+        pairs = EDGE_PAIRS + random_pairs(rng, 96, 10, 1000)
+        args = tensors(pairs, invalid_every=13)
+        ccfg, tb = cigar_configs(pen, 200, w, band)
+        fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args)
+        tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args)
+        torch.cuda.synchronize()
+        plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
+        tb_plain = traceback_torch.traceback_batch_device(
+            tb, plain["choice_words"], plain.get("lo_trace"),
+            plain["distance"], plain["finished"], args[3] - args[2],
+        )
+        want = traceback_torch.fuse(plain["distance"], plain["finished"],
+                                    tb_plain["n_ops"], tb_plain["ops"])
+        what = f"band={band} pen={pen} W={w}"
+        require(torch.equal(tables["finished"], plain["finished"])
+                and torch.equal(tables["distance"], plain["distance"]),
+                f"K2 distances differ: {what}")
+        require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables),
+                f"K2 choice table differs on the readable region: {what}")
+        require(torch.equal(fused, want), f"K2 + K3 rows differ: {what}")
+        max_err["wfa_cigar"] = max(max_err["wfa_cigar"], (
+            tables["distance"] - plain["distance"]).abs().max().item())
+        max_err["wfa_traceback"] = max(
+            max_err["wfa_traceback"], (fused - want).abs().max().item())
+        n_cases += 1
+        n_lanes += len(pairs)
+        n_walks += int((want[:, 2] > 0).sum())
+    phase("k2k3-vs-plain", t0, f"{n_cases} cases, {n_lanes} lanes, {n_walks} "
+          "walks: distances, flags, n_ops and op streams equal; tables equal "
+          "on the readable region")
+
+    # ---- 7. CIGAR goldens through align_pairs(compute_cigar=True) ----
+    t0 = time.perf_counter()
+    kernel_route = engine_cuda.align_cigar_cuda
+    launches0 = dict(engine_cuda.LAUNCHES)
+    shares = []
+    for name, batch, pen, me, gold in golden_runs[:4]:
+        t1 = time.perf_counter()
+        copts = AlignmentOptions(penalties=pen, max_error=me,
+                                 compute_cigar=True, backend="cuda")
+        res = align_pairs(batch.patterns, batch.texts, copts)
+        t_card = time.perf_counter() - t1
+        bad = sum(r.error != g for r, g in zip(res, gold))
+        require(len(res) == len(gold) and bad == 0,
+                f"{name} CIGAR: {bad} scores differ from the goldens")
+        invalid = sum(
+            not (check_cigar(r.cigar, p, t) and affine_score(r.cigar, pen) == r.error)
+            for r, p, t in zip(res, batch.patterns, batch.texts)
+        )
+        require(invalid == 0, f"{name}: {invalid} CIGARs invalid")
+        # The same geometry with the plain K2 + K3 in place of the kernels.
+        engine_cuda.align_cigar_cuda = traceback_torch.align_cigar_fused
+        try:
+            plain_res = align_pairs(batch.patterns, batch.texts, copts)
+        finally:
+            engine_cuda.align_cigar_cuda = kernel_route
+        require([r.cigar for r in res] == [r.cigar for r in plain_res],
+                f"{name}: CIGARs differ from the plain route's")
+        on_card = sum(r.finished_on_accelerator for r in res)
+        shares.append(f"{name} {on_card}/{len(res)} on card ({t_card:.2f}s)")
+    require(all(engine_cuda.LAUNCHES[k] > launches0[k]
+                for k in ("wfa_cigar", "wfa_traceback")),
+            "CIGAR golden runs launched no K2/K3")
+    phase("cigar-goldens", t0, "all scores equal, every CIGAR valid with "
+          "affine_score == error and equal to the plain route's; "
+          + ", ".join(shares))
+
+    # ---- 8. HiFi banded CIGAR: 400 x ~14 kbp, W=512, band 25 ----
+    t0 = time.perf_counter()
+    cref = json.loads((DATA / "hifi_banded_cigar_w512_b25.json").read_text())
+    require(cref["config"] == ref["config"], "HiFi CIGAR reference config")
+    pen = Penalties(2, 3, 1)
+    ccfg, tb = cigar_configs(pen, 3000, 512, 25)
+    tk = hifi_args[3] - hifi_args[2]
+    fused = engine_cuda.align_cigar_cuda(ccfg, tb, *hifi_args)   # warm-up
+    torch.cuda.synchronize()
+    k2k3_ms, fused = cuda_ms(
+        lambda: engine_cuda.align_cigar_cuda(ccfg, tb, *hifi_args), 5)
+    k2_ms, tables = cuda_ms(
+        lambda: engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *hifi_args), 5)
+    k3_ms, _ = cuda_ms(lambda: engine_cuda.traceback_cuda(
+        tb, tables["choice_words"], tables["lo_trace"], tables["distance"],
+        tables["finished"], tk), 5)
+    arr = fused.cpu().numpy()
+    require(bool((arr[:, 1] != 0).all()), "HiFi CIGAR: unfinished pairs on K2")
+    require(bool((arr[:, 2] > 0).all()), "HiFi CIGAR: corrupt or missing walks")
+    cigars, _ = native.cigar_from_ops_batch(
+        np.ascontiguousarray(arr[:, 4:]), arr[:, 2], arr[:, 1] != 0, pats, txts
+    )
+    require(cigars == cref["cigar"] * HIFI_REPS,
+            "HiFi CIGAR: K2 + K3 CIGARs differ from the stored reference")
+    k2_plain_ms, plain = cuda_ms(
+        lambda: engine_torch.cigar_tables(ccfg, tb.score_cap, *hifi_args), 1)
+    k3_plain_ms, tb_plain = cuda_ms(lambda: traceback_torch.traceback_batch_device(
+        tb, plain["choice_words"], plain["lo_trace"], plain["distance"],
+        plain["finished"], tk), 1)
+    want = traceback_torch.fuse(plain["distance"], plain["finished"],
+                                tb_plain["n_ops"], tb_plain["ops"])
+    require(torch.equal(fused, want), "HiFi CIGAR: K2 + K3 differ from plain")
+    max_err["wfa_cigar"] = max(max_err["wfa_cigar"], (
+        tables["distance"] - plain["distance"]).abs().max().item())
+    max_err["wfa_traceback"] = max(
+        max_err["wfa_traceback"], (fused - want).abs().max().item())
+    require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables),
+            "HiFi CIGAR: K2 table differs on the readable region")
+
+    copts = AlignmentOptions(penalties=pen, max_error=3000, band=25,
+                             band_width=512, compute_cigar=True, backend="cuda")
+    align_pairs(pats[:8], txts[:8], copts)           # warm-up
+    torch.cuda.synchronize()
+    for k in engine_cuda.LAUNCHES:
+        engine_cuda.LAUNCHES[k] = 0
+    t1 = time.perf_counter()
+    res = align_pairs(pats, txts, copts)
+    torch.cuda.synchronize()
+    ce2e_s = time.perf_counter() - t1
+    cigar_launches = dict(engine_cuda.LAUNCHES)
+    require(cigar_launches["wfa_cigar"] > 0 and cigar_launches["wfa_traceback"] > 0,
+            "align_pairs(compute_cigar=True) launched no K2/K3")
+    require([r.cigar for r in res] == cref["cigar"] * HIFI_REPS
+            and [r.error for r in res] == cref["distance"] * HIFI_REPS,
+            "HiFi CIGAR: align_pairs differs from the stored reference")
+    require(all(r.finished_on_accelerator for r in res),
+            "HiFi CIGAR: align_pairs left pairs to the CPU")
+
+    # The work this run's data needs (bound_ms): cells = scheduled scores up
+    # to each pair's distance x that score's window; K2's bytes are the
+    # choice rows and lo_trace entries it stores; K3 reads one choice word
+    # and one lo_trace entry per step and writes its rows.
+    sched = build_schedule(pen, 3000, ccfg.score_limit)
+    scores = torch.from_numpy(sched.score).to(dev, torch.int64)
+    on_walk = scores[None, :] <= plain["distance"].long()[:, None]   # [B, S]
+    windows = plain["window_ext"][:, scores].long() + 1
+    cells = int((windows * on_walk).sum())
+    rows = int(sum(len(set((sched.score[sched.score <= d] >> 3).tolist()))
+                   for d in plain["distance"].tolist()))
+    scored = int(on_walk.sum())
+    walk_steps = int(want[:, 2].long().sum())
+    seq_bytes = sum(t.numel() * t.element_size() for t in hifi_args)
+    k1_bound = bound_ms(seq_bytes + 5 * n, cells * OPS_PER_CELL)
+    k2_bound = bound_ms(seq_bytes + 5 * n + rows * 512 * 4 + scored * 4,
+                        cells * OPS_PER_CELL_CIGAR)
+    k3_bound = bound_ms(walk_steps * 8 + 9 * n + fused.numel() * 4,
+                        walk_steps * OPS_PER_WALK_STEP)
+    phase("hifi-cigar", t0,
+          f"{n} pairs: K2+K3 {k2k3_ms:.3f} ms ({n / k2k3_ms * 1e3:.1f} aln/s; "
+          f"K2 {k2_ms:.3f}, K3 {k3_ms:.3f}), plain K2+K3 "
+          f"{k2_plain_ms + k3_plain_ms:.3f} ms (K2 {k2_plain_ms:.3f}, K3 "
+          f"{k3_plain_ms:.3f}), align_pairs {ce2e_s * 1e3:.3f} ms "
+          f"({n / ce2e_s:.1f} aln/s), launches {cigar_launches}; all on card, "
+          f"no corrupt walk, CIGARs equal the reference x{HIFI_REPS}; "
+          f"{cells} cells, {rows} choice rows, {walk_steps} walk steps; [{smi}]")
+
+    print(json.dumps({"kernels": [
+        {
+            "name": "wfa_distance", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/ops/engine_pallas.py:804",
+            "launches": k1_launches, "max_abs_err": max_err["wfa_distance"],
+            "ms": k1_ms, "plain_ms": k1_plain_ms,
+            "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None,
+        },
+        {
+            "name": "wfa_cigar", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/ops/engine_pallas.py:804",
+            "launches": cigar_launches["wfa_cigar"],
+            "max_abs_err": max_err["wfa_cigar"],
+            "ms": k2_ms, "plain_ms": k2_plain_ms,
+            "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None,
+        },
+        {
+            "name": "wfa_traceback", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_traceback.cu",
+            "replaces": "wfa_tpu/ops/traceback_pallas.py:95",
+            "launches": cigar_launches["wfa_traceback"],
+            "max_abs_err": max_err["wfa_traceback"],
+            "ms": k3_ms, "plain_ms": k3_plain_ms,
+            "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

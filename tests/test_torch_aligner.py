@@ -11,15 +11,21 @@ import pytest
 
 import wfa_tpu
 import wfa_tpu_torch
-from wfa_tpu.aligner import _TierPlan
 from wfa_tpu.ops.packing import pack_batch
 from wfa_tpu.utils.io import read_seq_file
 from wfa_tpu_torch import AlignmentOptions, Penalties
-from wfa_tpu_torch.aligner import _tier_geometry_cuda
+from wfa_tpu_torch.aligner import _TierPlan, _tier_geometry_cuda
 from wfa_tpu_torch.ops import engine_cuda, engine_torch
 
 DATA = Path(__file__).parent / "data"
 H100_SMEM = 232448  # bytes a block may opt in to on an H100
+
+
+def tpu_opts(opts, **kw):
+    """wfa_tpu's options with the same field values, on one device."""
+    fields = {f.name: getattr(opts, f.name) for f in dataclasses.fields(opts)}
+    fields["penalties"] = wfa_tpu.Penalties(*(getattr(opts.penalties, k) for k in "xoe"))
+    return wfa_tpu.AlignmentOptions(**{**fields, "data_parallel": False, **kw})
 
 
 def golden(tag):
@@ -37,7 +43,7 @@ def test_torch_backend_matches_xla_and_goldens(pen, tag):
     got = wfa_tpu_torch.align_pairs(batch.patterns, batch.texts, opts)
     ref = wfa_tpu.align_pairs(
         batch.patterns, batch.texts,
-        dataclasses.replace(opts, backend="xla", data_parallel=False),
+        tpu_opts(opts, backend="xla"),
     )
     assert [r.error for r in got] == [r.error for r in ref]
     assert [
@@ -63,7 +69,7 @@ def test_torch_backend_matches_xla_hifi_banded():
     )
     got = wfa_tpu_torch.align_pairs(pats, txts, opts)
     ref = wfa_tpu.align_pairs(
-        pats, txts, dataclasses.replace(opts, backend="xla", data_parallel=False)
+        pats, txts, tpu_opts(opts, backend="xla")
     )
     assert [r.error for r in got] == [r.error for r in ref]
     assert all(r.finished_on_accelerator for r in got)
@@ -109,12 +115,16 @@ def test_pipeline_and_aligner_object_match_one_call():
 
 
 def _geom(tier, wf_width, pen=Penalties(2, 3, 1), banded=False,
-          smem=H100_SMEM, score_limit=None):
-    opts = AlignmentOptions(penalties=pen, band=25 if banded else -1)
+          smem=H100_SMEM, score_limit=None, cigar=False):
+    opts = AlignmentOptions(penalties=pen, band=25 if banded else -1,
+                            compute_cigar=cigar)
     if score_limit is None and not banded:
         score_limit = 2 * pen.o + pen.e * 2 * (tier + 2) + pen.x
     plan = _TierPlan(tier, [0], wf_width, 8, tier // 16 + 1, score_limit)
-    return _tier_geometry_cuda(plan, opts, 3000, 25 if banded else -1, smem)
+    cfg, full, cert, score_cap = _tier_geometry_cuda(
+        plan, opts, 3000, 25 if banded else -1, smem)
+    assert (score_cap > 0) == cigar
+    return cfg, full, cert
 
 
 def test_geometry_widths_and_caps():
@@ -167,3 +177,40 @@ def test_geometry_invariants_fuzz():
         assert full == (cfg.wf_width >= wf)
         if not full:
             assert cfg.score_limit <= cert
+
+
+def test_geometry_cigar_mode():
+    """CIGAR mode: K2's row words narrow the exact cap; the table holds
+    scores below score_cap = unfinished_score + 1, capped at the
+    certificate when the window is truncated; the schedule runs to
+    score_cap - 1; the per-launch batch keeps the table in the budget."""
+    from wfa_tpu_torch.aligner import _cigar_call_batch
+    from wfa_tpu_torch.ops.engine_torch import num_chunks
+    from wfa_tpu_torch.schedule import build_schedule
+
+    pen = Penalties(2, 3, 1)
+    assert engine_cuda.max_width(5, H100_SMEM, cigar=True) == 3584
+    assert engine_cuda.smem_bytes(5, 512, cigar=True) == (
+        engine_cuda.smem_bytes(5, 512) + 4 * 512)
+    opts = AlignmentOptions(penalties=pen, compute_cigar=True)
+    # HiFi banded: W=512, untruncated; ~377 rows of 2 KB per lane.
+    plan = _TierPlan(16384, [0], 512, 8, 1025, None)
+    cfg, full, cert, cap = _tier_geometry_cuda(
+        plan, AlignmentOptions(penalties=pen, band=25, compute_cigar=True),
+        3000, 25, H100_SMEM)
+    assert full and cap == build_schedule(pen, 3000, None).unfinished_score + 1
+    assert cfg.score_limit == cap - 1 and cfg.compute_cigar
+    assert num_chunks(cap) == 377
+    assert _cigar_call_batch(opts, cap, 512) * num_chunks(cap) * 512 * 4 <= 1 << 30
+    # seq_10K_n100 at -e 3000: truncated at the CIGAR cap and certified.
+    limit = 2 * 3 + 2 * (16384 + 2) + 2
+    plan = _TierPlan(16384, [0], 6001, 8, 1025, limit)
+    cfg, full, cert, cap = _tier_geometry_cuda(plan, opts, 3000, -1, H100_SMEM)
+    assert cfg.wf_width == 3584 and not full
+    assert cap == cert + 1 and cfg.score_limit == cert
+    call_b = _cigar_call_batch(opts, cap, 3584)
+    per_lane = num_chunks(cap) * 3584 * 4
+    assert 1 <= call_b and call_b * per_lane <= 1 << 30
+    # A budget past 2**31 table cells: the kernels index with 64-bit offsets.
+    big = dataclasses.replace(opts, memory_budget_bytes=64 << 30)
+    assert _cigar_call_batch(big, cap, 3584) * num_chunks(cap) * 3584 > 2**31

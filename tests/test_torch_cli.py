@@ -4,6 +4,9 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
+from wfa_tpu.cli import main as tpu_main
 from wfa_tpu_torch.cli import main
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -72,5 +75,45 @@ def test_cli_errors_and_unsupported_flags():
     assert main(["-i", seq, "-e", "0"]) == 1                 # bad max error
     assert main(["-i", seq, "-B", "-3"]) == 1                # bad band
     assert main(["-i", seq, "-n", "1", "-g", "1,2"]) == 1    # bad penalties
-    assert main(["-i", seq, "-n", "1", "-x"]) == 1           # CIGAR: not yet
-    assert main(["-i", seq, "-n", "1", "--profile", "t"]) == 1
+    assert main(["-i", seq, "-n", "1", "--profile", "t"]) == 1   # not yet
+
+
+# The -x cases of tests/test_cli.py:53-110, run against both CLIs; the
+# port's on the plain engine (--backend torch).
+CLIS = {"wfa_tpu": (tpu_main, []), "wfa_tpu_torch": (main, ["--backend", "torch"])}
+
+
+@pytest.mark.parametrize("which", sorted(CLIS))
+def test_cli_cigar_check(tmp_path, capsys, which):
+    """-x -c: CIGARs self-check against the exact oracle (correct=N)."""
+    run, extra = CLIS[which]
+    out = tmp_path / "res.out"
+    rc = run([
+        "-i", str(DATA / "wfa.utest.seq"), "-n", "50", "-g", "1,2,1",
+        "-e", "100", "-x", "-c", "-o", str(out), *extra,
+    ])
+    assert rc == 0
+    assert "correct=50 incorrect=0" in capsys.readouterr().err
+    lines = Path(out).read_text().splitlines()
+    assert len(lines) == 50
+    assert all(len(line.split("\t")) >= 2 and line.split("\t")[1]
+               for line in lines)
+    assert [line.split("\t")[0] for line in lines] == golden_scores("p0")[:50]
+
+
+def test_cli_cigar_output_verbose_equal_between_clis(tmp_path):
+    """-x -O: four columns, and the two CLIs write the same file."""
+    outs = {}
+    for which, (run, extra) in CLIS.items():
+        out = tmp_path / f"{which}.out"
+        assert run([
+            "-i", str(DATA / "wfa.utest.seq"), "-n", "5", "-g", "1,2,1",
+            "-e", "25", "-x", "-O", "-o", str(out), *extra,
+        ]) == 0
+        outs[which] = out.read_text()
+        for line in outs[which].splitlines():
+            cols = line.split("\t")
+            assert len(cols) == 4 and cols[1]
+            assert set(cols[2]) <= set("ACGTNacgtn")
+            assert set(cols[3]) <= set("ACGTNacgtn")
+    assert outs["wfa_tpu"] == outs["wfa_tpu_torch"]

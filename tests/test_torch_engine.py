@@ -155,10 +155,16 @@ def test_config_from_tpu():
     assert engine_torch.config_from_tpu(PallasConfig(
         penalties=pen, max_steps=90, wf_width=256,
     )).score_limit is None
-    with pytest.raises(NotImplementedError):
-        engine_torch.config_from_tpu(XlaConfig(
-            penalties=pen, max_steps=90, wf_width=200, compute_cigar=True,
-        ))
+    # CIGAR configs map too: compute_cigar passes through.
+    c = engine_torch.config_from_tpu(XlaConfig(
+        penalties=pen, max_steps=90, wf_width=200, compute_cigar=True,
+    ))
+    assert c.compute_cigar and c.score_limit is None
+    p = engine_torch.config_from_tpu(PallasConfig(
+        penalties=pen, max_steps=90, wf_width=256, compute_cigar=True,
+        score_cap=58, band=10,
+    ))
+    assert (p.compute_cigar, p.band, p.score_limit) == (True, 10, 57)
 
 
 def test_batch_to_tensors_keeps_word_bits():
@@ -176,7 +182,7 @@ def test_cuda_wrapper_on_cpu_tensors_runs_the_plain_version():
     pat, plen, txt, tlen, valid = _pack(pairs, 8)
     args = engine_torch.batch_to_tensors(pat, plen, txt, tlen, valid, "cpu")
     cfg = engine_torch.EngineConfig(Penalties(2, 3, 1), 80, 64, 10)
-    before = engine_cuda.LAUNCHES
+    before = dict(engine_cuda.LAUNCHES)
     got = engine_cuda.align_batch_cuda(cfg, *args)
     want = engine_torch.align_batch_device(cfg, *args)
     assert engine_cuda.LAUNCHES == before

@@ -1,6 +1,8 @@
-"""The PyTorch/CUDA port imports no jax, builds wfa_tpu's native host
-library even without OpenMP, and refuses what it does not do: the CUDA
-backend without a CUDA device, and the CIGAR path."""
+"""The PyTorch/CUDA port stands alone: it imports neither jax nor anything of
+wfa_tpu, builds its native host library even without OpenMP, and refuses
+what it does not do: the CUDA backend without a CUDA device, the profiler
+flag and backends it does not have."""
+import ast
 import ctypes
 import subprocess
 import sys
@@ -10,20 +12,65 @@ import pytest
 import torch
 
 import wfa_tpu_torch
-from wfa_tpu.utils.io import read_seq_file
 from wfa_tpu_torch import AlignmentOptions
+from wfa_tpu_torch.cli import main
 from wfa_tpu_torch.ops import _build
+from wfa_tpu_torch.utils.io import read_seq_file
 
 ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _module_names():
+    pkg = ROOT / "wfa_tpu_torch"
+    for path in sorted(pkg.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        yield ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+def _imports_of(path: Path) -> list[str]:
+    """Absolute module names imported anywhere in the file."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_source_imports_neither_wfa_tpu_nor_jax(path):
+    bad = [
+        n for n in _imports_of(path)
+        if n.split(".")[0] in ("wfa_tpu", "jax", "jaxlib")
+    ]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 def test_port_imports_no_jax():
     code = (
-        "import sys\n"
-        "import wfa_tpu_torch, wfa_tpu_torch.cli, wfa_tpu_torch.aligner\n"
-        "import wfa_tpu_torch.ops.engine_cuda, wfa_tpu_torch.utils.device_query\n"
+        "import importlib, sys\n"
+        f"for name in {list(_module_names())!r}:\n"
+        "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
         "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
+def test_port_imports_nothing_of_wfa_tpu():
+    """After importing every module of the port, no module named wfa_tpu or
+    wfa_tpu.* is loaded."""
+    code = (
+        "import importlib, sys\n"
+        f"names = {list(_module_names())!r}\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'wfa_tpu' or m.startswith('wfa_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert 'wfa_tpu_torch.ops.engine_cuda' in sys.modules\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
 
@@ -57,14 +104,12 @@ def test_native_host_library_builds_serially(tmp_path):
     ]
     assert got == want
     assert _build.ensure_native()
+    assert _build.native_library_path().parent.name == "torch_native"
 
 
 def test_unsupported_requests_raise():
-    with pytest.raises(NotImplementedError, match="CIGAR"):
-        wfa_tpu_torch.align_pairs(
-            [b"ACGT"], [b"ACGT"],
-            AlignmentOptions(compute_cigar=True, backend="torch"),
-        )
+    seq = str(ROOT / "tests" / "data" / "wfa.utest.seq")
+    assert main(["-i", seq, "-n", "1", "--profile", "trace"]) == 1
     with pytest.raises(ValueError):
         wfa_tpu_torch.align_pairs(
             [b"ACGT"], [b"ACGT"], AlignmentOptions(backend="xla")

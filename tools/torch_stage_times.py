@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Where the time of ``align_pairs(backend='cuda')`` goes, per stage, on the
+HiFi banded workload (tests/data/test_hifi.seq x8 = 400 pairs of ~14 kbp,
+W=512, band 25, penalties 2,3,1, max_steps 3000), in distance and in CIGAR
+mode.
+
+    python3 tools/torch_stage_times.py [--reps 3]
+
+Needs a CUDA device.  Each stage the aligner calls is wrapped with a host
+clock (with ``torch.cuda.synchronize()`` around the copies and the kernels,
+so device work is charged to the stage that launched it); one further call
+runs under ``torch.profiler`` for the device time by kernel and copy.
+Prints the card's name and power limit, then one JSON line.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import functools
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=3, help="timed repeats per mode")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_stage_times: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from wfa_tpu_torch import AlignmentOptions, Penalties, align_pairs, aligner, native
+    from wfa_tpu_torch.ops import engine_cuda
+    from wfa_tpu_torch.utils.io import read_seq_file
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi, flush=True)
+
+    stages: dict[str, float] = collections.defaultdict(float)
+
+    def timed(module, name, stage, device):
+        fn = getattr(module, name)
+
+        @functools.wraps(fn)
+        def wrapper(*a, **kw):
+            if device:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if device:
+                torch.cuda.synchronize()
+            stages[stage] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(module, name, wrapper)
+
+    timed(aligner, "divergence_scores", "presort", False)
+    timed(aligner, "_plan_tiers", "plan_tiers", False)
+    timed(aligner, "pack_batch", "pack", False)
+    timed(aligner, "batch_to_tensors", "h2d", True)
+    timed(engine_cuda, "align_batch_cuda", "kernel_k1", True)
+    timed(engine_cuda, "align_cigar_cuda", "kernels_k2_k3", True)
+    timed(native, "cigar_from_ops_batch", "decode", False)
+    timed(native, "cpu_align_batch", "cpu_fallback", False)
+
+    hifi = read_seq_file(ROOT / "tests" / "data" / "test_hifi.seq")
+    pats, txts = hifi.patterns * 8, hifi.texts * 8
+    report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+              "pairs": len(pats)}
+    for mode, cigar in (("distance", False), ("cigar", True)):
+        opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=3000,
+                                band=25, band_width=512, compute_cigar=cigar,
+                                backend="cuda")
+        align_pairs(pats[:8], txts[:8], opts)          # warm-up
+        runs = []
+        for _ in range(args.reps):
+            stages.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = align_pairs(pats, txts, opts)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            assert all(r.finished_on_accelerator for r in res)
+            row = {"total_ms": total, **dict(stages)}
+            row["rest_ms"] = total - sum(stages.values())
+            runs.append(row)
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            t0 = time.perf_counter()
+            align_pairs(pats, txts, opts)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        # Kernels and copies only: the CPU ops that launched them report
+        # the same device time again.
+        device = {
+            e.key: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+        }
+        busy = sum(device.values())
+        report[mode] = {
+            "runs": runs,
+            "profiled_wall_ms": wall,
+            "device_ms_by_name": device,
+            "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall,
+        }
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

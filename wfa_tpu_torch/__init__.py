@@ -1,16 +1,16 @@
 """wfa_tpu_torch — the PyTorch/CUDA port of wfa_tpu.
 
 Batch gap-affine pairwise DNA alignment with the wavefront algorithm (WFA),
-distance mode, on an NVIDIA Hopper GPU through a hand-written CUDA kernel,
-with a plain PyTorch engine for the CPU.  The host layer (types, options,
-schedule, packing, readers, native CPU fallback) is imported from ``wfa_tpu``
-as it is; this package never imports jax.
+distance and CIGAR, on an NVIDIA Hopper GPU through hand-written CUDA
+kernels, with a plain PyTorch engine for the CPU.  The package stands alone:
+it keeps its own copy of each host module of ``wfa_tpu`` it needs (types,
+options, schedule, packing, readers, the native host library's bindings,
+CIGAR decoding) and imports neither ``wfa_tpu`` nor jax.
 """
-from wfa_tpu.params import AlignmentOptions, default_band_width, default_max_error
-from wfa_tpu.types import MAX_SEQ_LEN, AlignmentResult, Penalties
-
 from .aligner import WfaAligner, align_pairs
+from .params import AlignmentOptions, default_band_width, default_max_error
 from .pipeline import align_pairs_pipelined
+from .types import MAX_SEQ_LEN, AlignmentResult, Penalties
 
 __version__ = "0.1.0"
 

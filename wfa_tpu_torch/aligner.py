@@ -1,39 +1,115 @@
-"""Public aligner API of the PyTorch/CUDA port (distance path).
+"""Public aligner API of the PyTorch/CUDA port.
 
-The counterpart of ``wfa_tpu/aligner.py``: pairs are binned into length tiers
-(``wfa_tpu.aligner._plan_tiers``), each tier runs on the device engine, pairs
-the device leaves unfinished get the on-device retry ladder, and what is still
+The counterpart of ``wfa_tpu/aligner.py``: pairs are binned into length
+tiers (``_plan_tiers``), each tier runs on the device engine, pairs the
+device leaves unfinished get the on-device retry ladder, and what is still
 unfinished, ``N``-containing or oversized goes to the native CPU fallback.
+With ``compute_cigar`` each pair also gets its CIGAR.
 
-Backends: ``cuda`` runs the hand-written kernel (``ops/engine_cuda.py``) and
-never carries on on the CPU; ``torch`` runs the plain PyTorch engine on CPU
-tensors at the XLA route's window widths, so its results equal
+Backends: ``cuda`` runs the hand-written kernels (``ops/engine_cuda.py``: K1
+for distances; K2 + K3 for CIGARs, with only the walked op streams copied
+back and decoded by ``native.cigar_from_ops_batch``) and never carries on on
+the CPU; ``torch`` runs the plain PyTorch engine on CPU tensors at the XLA
+route's window widths, decoding its per-step choice table with
+``native.traceback_batch``, so its results equal
 ``wfa_tpu.align_pairs(backend='xla')``; ``auto`` picks ``cuda`` when a CUDA
 device is present.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from wfa_tpu import native
-from wfa_tpu.aligner import WfaAligner as _WfaAlignerBase
-from wfa_tpu.aligner import _plan_tiers, _round_up
-from wfa_tpu.ops.packing import _ACGT, pack_batch
-from wfa_tpu.params import AlignmentOptions, default_max_error
-from wfa_tpu.types import MAX_SEQ_LEN, AlignmentResult
-from wfa_tpu.utils.logger import LOG
-from wfa_tpu.utils.presort import MIN_PRESORT_TIER, divergence_scores
-
-from .ops import _build, engine_cuda
-from .ops.engine_cuda import align_batch_cuda
+from . import native
+from .ops import _build, engine_cuda, engine_torch
 from .ops.engine_torch import EngineConfig, batch_to_tensors
+from .ops.packing import _ACGT, pack_batch
+from .ops.traceback_torch import TracebackConfig
+from .params import AlignmentOptions, default_band_width, default_max_error
+from .schedule import build_schedule
+from .traceback import recover_cigar, recover_cigar_from_stream
+from .types import MAX_SEQ_LEN, AlignmentResult
+from .utils.cpu_wfa import align_one_py
+from .utils.logger import LOG
+from .utils.presort import MIN_PRESORT_TIER, divergence_scores
 
 BACKENDS = ("auto", "torch", "cuda")
 _LANE = 128
-# Pairs per kernel launch: one block per pair, so this only bounds the
-# packed host arrays.
+_MIN_TIER = 64
+# Pairs per kernel launch in distance mode: one block per pair, so this only
+# bounds the packed host arrays.
 _CUDA_CALL_BATCH = 1 << 16
+# Most pairs per K2 launch; the memory budget usually binds first.
+_CUDA_CIGAR_CALL_BATCH = 4096
+
+
+def _tier_of(length: int) -> int:
+    t = _MIN_TIER
+    while length + 2 > t:
+        t *= 2
+    return t
+
+
+def _round_up(v: int, m: int) -> int:
+    return ((v + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class _TierPlan:
+    tier: int
+    indices: list[int]
+    wf_width: int
+    tile_batch: int
+    nwords: int
+    score_limit: int | None
+
+
+def _plan_tiers(
+    lens: np.ndarray, opts: AlignmentOptions, max_error: int,
+    cost_hint: np.ndarray | None = None,
+) -> list[_TierPlan]:
+    """Bin pairs into power-of-two length tiers (``wfa_tpu/aligner.py``
+    ``_plan_tiers``): per tier the window width, the exact mode's score
+    bound, the plain engine's tile and the packed words per sequence.
+    Within a tier pairs are ordered by ``cost_hint`` (estimated divergence),
+    then by length, so pairs of similar cost run together."""
+    pen = opts.penalties
+    tiers: dict[int, list[int]] = {}
+    for i, L in enumerate(lens):
+        tiers.setdefault(_tier_of(int(L)), []).append(i)
+
+    plans = []
+    for tier, idxs in sorted(tiers.items()):
+        if cost_hint is not None:
+            idxs.sort(key=lambda i: (-cost_hint[i], -int(lens[i])))
+        else:
+            idxs.sort(key=lambda i: -int(lens[i]))
+        if opts.banded:
+            width = opts.band_width or default_band_width(max_error)
+            w = min(width, 2 * (tier + 2) + 1)
+            score_limit = None
+        else:
+            w = 2 * min(max_error, tier + 2) + 1
+            # The all-indels alignment bounds the optimum, so the schedule
+            # never needs scores beyond its cost for this tier.
+            score_limit = 2 * pen.o + pen.e * 2 * (tier + 2) + pen.x
+        sched = build_schedule(pen, max_error, score_limit)
+        if opts.compute_cigar:
+            # The plain engine's per-step choice table, times 3 for its
+            # temporaries.
+            per_lane = sched.num_steps * w * 3
+        else:
+            per_lane = 3 * pen.active_working_set * w * 4 * 2
+        tile = opts.tile_batch or max(
+            8, min(2048, opts.memory_budget_bytes // max(per_lane, 1))
+        )
+        if opts.compute_cigar and w >= 2048:
+            tile = min(tile, 16)
+        tile = min(_round_up(len(idxs), 8), _round_up(tile, 8))
+        plans.append(_TierPlan(tier, idxs, w, tile, tier // 16 + 1, score_limit))
+    return plans
 
 
 def _resolve_backend(name: str) -> str:
@@ -48,30 +124,37 @@ def _resolve_backend(name: str) -> str:
 
 def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
                         band: int, smem_bytes: int):
-    """Launch geometry of one tier on the CUDA kernel; host arithmetic only.
+    """Launch geometry of one tier on the CUDA kernels; host arithmetic only.
 
     The window is ``plan.wf_width`` rounded up to 128 diagonals, as on the
     Pallas route, so banded scores equal ``wfa_tpu``'s at the same W.  An
-    exact window wider than the shared-memory ring allows is truncated to the
-    cap and certified: leaving a centred +-W/2 window costs at least
+    exact window wider than the shared memory allows is truncated to the cap
+    and certified: leaving a centred +-W/2 window costs at least
     ``o + e*(W/2+1)``, so a distance below that bound is optimal; the loop
     stops at the bound.  A banded window is never truncated.
 
-    Returns (EngineConfig, full_window, cert_bound)."""
+    In CIGAR mode (``wfa_tpu/aligner.py:204-224``) the choice table holds
+    scores below ``score_cap = unfinished_score + 1``, capped at
+    ``cert_bound + 1`` when the window is truncated, and the schedule runs to
+    ``score_cap - 1`` as the Pallas loop runs to ``d < score_cap``.
+
+    Returns (EngineConfig, full_window, cert_bound, score_cap); score_cap is
+    0 in distance mode."""
     pen = opts.penalties
     A = pen.active_working_set
+    cigar = opts.compute_cigar
     w = _round_up(plan.wf_width, _LANE)
     score_limit = None
     full_window = True
     if opts.banded:
-        if engine_cuda.smem_bytes(A, w) > smem_bytes:
+        need = engine_cuda.smem_bytes(A, w, cigar)
+        if need > smem_bytes:
             raise ValueError(
-                f"banded window W={w} with working set {A} needs "
-                f"{engine_cuda.smem_bytes(A, w)} bytes of shared memory; "
-                f"a block has {smem_bytes}"
+                f"banded window W={w} with working set {A} needs {need} "
+                f"bytes of shared memory; a block has {smem_bytes}"
             )
     else:
-        cap = engine_cuda.max_width(A, smem_bytes)
+        cap = engine_cuda.max_width(A, smem_bytes, cigar)
         if cap < _LANE:
             raise ValueError(
                 f"working set {A} leaves no {_LANE}-diagonal window in "
@@ -81,54 +164,148 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
         full_window = w >= plan.wf_width
         score_limit = plan.score_limit
     cert_bound = pen.o + pen.e * (w // 2 + 1)
-    if not full_window:
+    score_cap = 0
+    if cigar:
+        sched = build_schedule(pen, max_error, score_limit)
+        score_cap = sched.unfinished_score + 1
+        if not full_window:
+            score_cap = min(score_cap, cert_bound + 1)
+        score_limit = score_cap - 1
+    elif not full_window:
         score_limit = (
             cert_bound if score_limit is None else min(score_limit, cert_bound)
         )
     cfg = EngineConfig(
         penalties=pen, max_steps=max_error, wf_width=w, band=band,
-        score_limit=score_limit,
+        score_limit=score_limit, compute_cigar=cigar,
     )
-    return cfg, full_window, cert_bound
+    return cfg, full_window, cert_bound, score_cap
 
 
-def _run_tier(patterns, texts, idxs, plan, opts, max_error, band, backend,
-              results, need_cpu) -> None:
-    """Run one length tier on the device engine; unfinished or uncertified
-    pairs are flagged in ``need_cpu``."""
-    pen = opts.penalties
-    if backend == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-        cfg, full_window, cert_bound = _tier_geometry_cuda(
-            plan, opts, max_error, band, engine_cuda.smem_optin(device)
+def _cigar_call_batch(opts: AlignmentOptions, score_cap: int, w: int) -> int:
+    """Pairs per K2 launch: the memory budget over the bytes of one lane's
+    choice table, at most _CUDA_CIGAR_CALL_BATCH."""
+    per_lane = engine_torch.num_chunks(score_cap) * w * 4
+    return max(1, min(_CUDA_CIGAR_CALL_BATCH,
+                      opts.memory_budget_bytes // per_lane))
+
+
+def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
+                   results, need_cpu) -> None:
+    """One tier on K1 (distance) or K2 + K3 (CIGAR)."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    cfg, full_window, cert_bound, score_cap = _tier_geometry_cuda(
+        plan, opts, max_error, band, engine_cuda.smem_optin(device)
+    )
+    cigar = opts.compute_cigar
+    if cigar:
+        tb_cfg = TracebackConfig(
+            penalties=opts.penalties, wf_width=cfg.wf_width,
+            score_cap=score_cap, banded=cfg.banded,
+            lo_pad=engine_torch.lo_pad(score_cap) if cfg.banded else 0,
         )
-        call_b = _CUDA_CALL_BATCH
+        call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width)
     else:
-        device = torch.device("cpu")
-        cfg = EngineConfig(
-            penalties=pen, max_steps=max_error, wf_width=plan.wf_width,
-            band=band, score_limit=None if opts.banded else plan.score_limit,
-        )
-        full_window, cert_bound = True, 0
-        call_b = plan.tile_batch
+        call_b = _CUDA_CALL_BATCH
     LOG.debug(
-        "%s tier=%d pairs=%d W=%d band=%d full_window=%s cert_bound=%d",
-        backend, plan.tier, len(idxs), cfg.wf_width, band, full_window,
-        cert_bound,
+        "cuda tier=%d pairs=%d W=%d band=%d cigar=%s score_cap=%d call_b=%d "
+        "full_window=%s cert_bound=%d", plan.tier, len(idxs), cfg.wf_width,
+        band, cigar, score_cap, call_b, full_window, cert_bound,
     )
     for start in range(0, len(idxs), call_b):
         chunk = idxs[start : start + call_b]
-        pat_w, p_len, p_ok = pack_batch([patterns[i] for i in chunk], plan.nwords)
-        txt_w, t_len, t_ok = pack_batch([texts[i] for i in chunk], plan.nwords)
-        out = align_batch_cuda(
+        pats = [patterns[i] for i in chunk]
+        txts = [texts[i] for i in chunk]
+        pat_w, p_len, p_ok = pack_batch(pats, plan.nwords)
+        txt_w, t_len, t_ok = pack_batch(txts, plan.nwords)
+        args = batch_to_tensors(pat_w, p_len, txt_w, t_len, p_ok & t_ok, device)
+        cigars: list[str | None] = [None] * len(chunk)
+        if cigar:
+            # One copy back per chunk: distances, flags, op counts, streams.
+            arr = engine_cuda.align_cigar_cuda(cfg, tb_cfg, *args).cpu().numpy()
+            dist = arr[:, 0]
+            fin = arr[:, 1] != 0
+            n_ops = arr[:, 2]
+            ops_w = np.ascontiguousarray(arr[:, 4:])
+            if native.available():
+                cigars, _ = native.cigar_from_ops_batch(
+                    ops_w, n_ops, fin, pats, txts
+                )
+            else:
+                cigars = [
+                    recover_cigar_from_stream(ops_w[b], int(n_ops[b]),
+                                              pats[b], txts[b])
+                    if fin[b] and n_ops[b] >= 0 else None
+                    for b in range(len(chunk))
+                ]
+        else:
+            out = engine_cuda.align_batch_cuda(cfg, *args)
+            dist = out["distance"].cpu().numpy()
+            fin = out["finished"].cpu().numpy()
+        for b, i in enumerate(chunk):
+            ok = fin[b] and (full_window or int(dist[b]) < cert_bound)
+            if cigar and ok and cigars[b] is None:
+                ok = False  # corrupt walk -> CPU fallback
+            if ok:
+                results[i] = AlignmentResult(
+                    error=int(dist[b]), cigar=cigars[b] or "",
+                    finished_on_accelerator=True,
+                )
+            else:
+                need_cpu[i] = True
+
+
+def _run_tier_torch(patterns, texts, idxs, plan, opts, max_error, band,
+                    results, need_cpu) -> None:
+    """One tier on the plain engine at the XLA route's widths; CIGARs from
+    its per-step choice table (``wfa_tpu/aligner.py:647-732``)."""
+    pen = opts.penalties
+    cfg = EngineConfig(
+        penalties=pen, max_steps=max_error, wf_width=plan.wf_width,
+        band=band, score_limit=None if opts.banded else plan.score_limit,
+        compute_cigar=opts.compute_cigar,
+    )
+    if opts.compute_cigar:
+        sched = build_schedule(pen, max_error, cfg.score_limit)
+        max_sc = int(sched.score[-1]) if sched.num_steps else 0
+        step_of_score = np.full(max_sc + 1, -1, dtype=np.int32)
+        step_of_score[sched.score] = np.arange(sched.num_steps, dtype=np.int32)
+    device = torch.device("cpu")
+    for start in range(0, len(idxs), plan.tile_batch):
+        chunk = idxs[start : start + plan.tile_batch]
+        pats = [patterns[i] for i in chunk]
+        txts = [texts[i] for i in chunk]
+        pat_w, p_len, p_ok = pack_batch(pats, plan.nwords)
+        txt_w, t_len, t_ok = pack_batch(txts, plan.nwords)
+        out = engine_cuda.align_batch_cuda(
             cfg, *batch_to_tensors(pat_w, p_len, txt_w, t_len, p_ok & t_ok, device)
         )
-        dist = out["distance"].cpu().numpy()
-        fin = out["finished"].cpu().numpy()
+        dist = out["distance"].numpy()
+        fin = out["finished"].numpy()
+        cigars: list[str | None] = [None] * len(chunk)
+        if opts.compute_cigar:
+            # Only the steps a walk can reach.
+            dmax = int(dist[fin].max(initial=0))
+            smax = int(step_of_score[min(dmax, len(step_of_score) - 1)])
+            rows = min(out["choices"].shape[0], smax + 2)
+            choices = out["choices"][:rows].numpy()
+            lo_trace = out["lo_trace"][:rows].numpy()
+            if native.available():
+                cigars, _ = native.traceback_batch(
+                    choices, lo_trace, step_of_score, dist, fin, pats, txts, pen,
+                )
+            else:
+                cigars = [
+                    recover_cigar(choices[:, b], lo_trace[:, b], sched,
+                                  int(dist[b]), pats[b], txts[b])
+                    if fin[b] else None
+                    for b in range(len(chunk))
+                ]
         for b, i in enumerate(chunk):
-            if fin[b] and (full_window or int(dist[b]) < cert_bound):
+            if fin[b]:
                 results[i] = AlignmentResult(
-                    error=int(dist[b]), finished_on_accelerator=True
+                    error=int(dist[b]), cigar=cigars[b] or "",
+                    finished_on_accelerator=True,
                 )
             else:
                 need_cpu[i] = True
@@ -141,11 +318,8 @@ def align_pairs(
 ) -> list[AlignmentResult]:
     """Align a batch of (pattern, text) pairs; the functional core API."""
     opts = options or AlignmentOptions()
-    if opts.compute_cigar:
-        raise NotImplementedError(
-            "CIGAR path is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
     backend = _resolve_backend(opts.backend)
+    run_tier = _run_tier_cuda if backend == "cuda" else _run_tier_torch
     pen = opts.penalties
     n = len(patterns)
     if n == 0:
@@ -173,7 +347,7 @@ def align_pairs(
     band = opts.resolved_band() if opts.banded else -1
 
     def _device_pass(run_idx: list[int], err: int) -> None:
-        # Divergence-ordered tiling for long reads (wfa_tpu/utils/presort.py).
+        # Divergence-ordered tiling for long reads (utils/presort.py).
         hints = None
         dev_lens = lens[run_idx]
         if dev_lens.size and int(dev_lens.max()) >= MIN_PRESORT_TIER:
@@ -184,10 +358,8 @@ def align_pairs(
             )
         for plan in _plan_tiers(dev_lens, opts, err, hints):
             idxs = [run_idx[j] for j in plan.indices]
-            _run_tier(
-                patterns, texts, idxs, plan, opts, err, band, backend,
-                results, need_cpu,
-            )
+            run_tier(patterns, texts, idxs, plan, opts, err, band,
+                     results, need_cpu)
 
     # On-device retry ladder (wfa_tpu/aligner.py:734-767): unfinished
     # ACGT-clean pairs get further device passes at a doubled error budget,
@@ -219,23 +391,25 @@ def align_pairs(
 
     # CPU fallback pass (wfa_tpu/aligner.py:769-808).
     cpu_idx = np.flatnonzero(need_cpu)
+    cigar = opts.compute_cigar
     if cpu_idx.size and opts.cpu_fallback:
         LOG.debug("CPU fallback for %d/%d pairs", cpu_idx.size, n)
         cpats = [patterns[i] for i in cpu_idx]
         ctxts = [texts[i] for i in cpu_idx]
         if have_native:
             # WFA-adaptive on the CPU iff the device ran banded.
-            dist, _, _ = native.cpu_align_batch(
-                cpats, ctxts, pen, np.ones(len(cpats), dtype=np.int8), False,
+            dist, cigs, _ = native.cpu_align_batch(
+                cpats, ctxts, pen, np.ones(len(cpats), dtype=np.int8), cigar,
                 adaptive=opts.banded,
             )
         else:
-            from wfa_tpu.utils.cpu_wfa import align_one_py
-
-            dist = [align_one_py(p, t, pen, False)[0] for p, t in zip(cpats, ctxts)]
+            found = [align_one_py(p, t, pen, cigar) for p, t in zip(cpats, ctxts)]
+            dist = [d for d, _ in found]
+            cigs = [c for _, c in found]
         for j, i in enumerate(cpu_idx):
             results[i] = AlignmentResult(
-                error=int(dist[j]), finished_on_accelerator=False
+                error=int(dist[j]), cigar=(cigs[j] or "") if cigar else "",
+                finished_on_accelerator=False,
             )
     elif cpu_idx.size:
         LOG.warning(
@@ -251,11 +425,29 @@ def align_pairs(
     return results  # type: ignore[return-value]
 
 
-class WfaAligner(_WfaAlignerBase):
-    """Stateful wrapper (add_sequences / align) over this package's
-    pipelined ``align_pairs``."""
+class WfaAligner:
+    """Stateful wrapper (wfagpu_initialize_aligner / wfagpu_add_sequences /
+    wfagpu_align, lib/aligner.h:49-63) over the pipelined ``align_pairs``."""
+
+    def __init__(self, options: AlignmentOptions | None = None):
+        self.options = options or AlignmentOptions()
+        self._patterns: list[bytes] = []
+        self._texts: list[bytes] = []
+        self.results: list[AlignmentResult] = []
+
+    def add_sequences(self, pattern: bytes | str, text: bytes | str) -> None:
+        if isinstance(pattern, str):
+            pattern = pattern.encode()
+        if isinstance(text, str):
+            text = text.encode()
+        self._patterns.append(pattern)
+        self._texts.append(text)
+
+    def __len__(self) -> int:
+        return len(self._patterns)
 
     def align(self) -> list[AlignmentResult]:
+        # Honors options.batch_size through the streaming pipeline.
         from .pipeline import align_pairs_pipelined
 
         self.results = align_pairs_pipelined(

@@ -3,9 +3,10 @@
 The flags and output format of ``wfa_tpu/cli.py`` (the reference CLI surface,
 tools/aligner.c:60-187): one line ``-error<TAB>cigar`` per alignment, ``-O``
 appends the pattern and text.  ``--backend`` takes ``auto``, ``torch`` or
-``cuda``.  Distance mode only: ``-x`` and ``--profile`` are not supported yet.
+``cuda``.  ``--profile`` is not supported yet.
 
     python -m wfa_tpu_torch.cli -i tests/data/wfa.utest.seq -g 1,2,1 -e 10000 -o scores.out
+    python -m wfa_tpu_torch.cli -i tests/data/wfa.utest.seq -n 50 -g 1,2,1 -e 100 -x -c
 """
 from __future__ import annotations
 
@@ -15,19 +16,17 @@ import time
 
 import numpy as np
 
-from wfa_tpu import native
-from wfa_tpu.cli import _parse_penalties
-from wfa_tpu.params import AlignmentOptions
-from wfa_tpu.utils.io import (
-    SequenceBatch, read_fasta_pair, read_seq_file, write_alignments,
-)
-from wfa_tpu.utils.logger import LOG, set_verbosity
-from wfa_tpu.utils.timers import timed
-
+from . import native
 from .aligner import BACKENDS
-from .ops._build import ensure_native
+from .params import AlignmentOptions
 from .pipeline import align_pairs_pipelined
+from .types import Penalties
+from .utils.cpu_wfa import align_one_py
 from .utils.device_query import describe
+from .utils.io import SequenceBatch, read_fasta_pair, read_seq_file, write_alignments
+from .utils.logger import LOG, set_verbosity
+from .utils.timers import timed
+from .utils.verification import affine_score, check_cigar
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -40,7 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-T", "--input-fasta-target", help="FASTA with target (text) sequences")
     p.add_argument("-n", "--num-alignments", type=int, help="number of alignments to read (default: all)")
     p.add_argument("-g", "--affine-penalties", default=None, help="penalties x,o,e (default 2,3,1)")
-    p.add_argument("-x", "--compute-cigar", action="store_true", help="compute the optimal alignment path (CIGAR; not supported yet)")
+    p.add_argument("-x", "--compute-cigar", action="store_true", help="compute the optimal alignment path (CIGAR)")
     p.add_argument("-c", "--check", action="store_true", help="check alignment correctness against the CPU oracle")
     p.add_argument("-e", "--max-distance", type=int, help="maximum error the kernel computes (default: ~10%% of first pair)")
     p.add_argument("-b", "--batch-size", type=int, help="alignments per pipeline batch")
@@ -56,15 +55,32 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _parse_penalties(arg: str | None) -> Penalties:
+    """Parse ``-g x,o,e`` or raise ValueError (the reference CLI parses or
+    errors out, tools/aligner.c:265-283)."""
+    if not arg:
+        return Penalties(2, 3, 1)
+    parts = arg.split(",")
+    try:
+        if len(parts) != 3:
+            raise ValueError
+        x, o, e = (int(v) for v in parts)
+    except ValueError:
+        raise ValueError(
+            f"Invalid penalties {arg!r}: expected x,o,e (e.g. -g 2,3,1)."
+        ) from None
+    return Penalties(abs(x), abs(o), abs(e))
+
+
 def _read_input(args) -> SequenceBatch | None:
     if args.input_seq:
-        if ensure_native():
+        if native.available():
             pats, txts = native.read_seq_native(args.input_seq)
             n = args.num_alignments or len(pats)
             return SequenceBatch(pats[:n], txts[:n])
         return read_seq_file(args.input_seq, args.num_alignments)
     if args.input_fasta_query and args.input_fasta_target:
-        if ensure_native():
+        if native.available():
             pats, txts = native.read_fasta_native(
                 args.input_fasta_query, args.input_fasta_target
             )
@@ -77,13 +93,45 @@ def _read_input(args) -> SequenceBatch | None:
     return None
 
 
+def _check(args, batch: SequenceBatch, results, pen: Penalties, banded: bool) -> None:
+    """-c: scores against the exact CPU oracle and, with -x, each CIGAR
+    replayed and rescored; in banded mode a score off the optimum counts as
+    incorrect and recall is reported (wfa_tpu/cli.py:209-255)."""
+    if native.available():
+        oracle, _, _ = native.cpu_align_batch(
+            batch.patterns, batch.texts, pen,
+            np.ones(len(batch), dtype=np.int8), False, adaptive=False,
+        )
+    else:
+        oracle = [
+            align_one_py(p, t, pen, False)[0]
+            for p, t in zip(batch.patterns, batch.texts)
+        ]
+    ncorrect = noptimal = 0
+    for i, r in enumerate(results):
+        ok = True
+        if args.compute_cigar:
+            ok = check_cigar(r.cigar, batch.patterns[i], batch.texts[i])
+            ok = ok and affine_score(r.cigar, pen) == r.error
+        optimal = r.error == oracle[i]
+        noptimal += optimal
+        ncorrect += ok and optimal
+    print(f"correct={ncorrect} incorrect={len(results) - ncorrect}",
+          file=sys.stderr)
+    if banded and results:
+        print(
+            f"recall={100.0 * noptimal / len(results):.2f}%"
+            f" ({noptimal}/{len(results)} scores optimal)",
+            file=sys.stderr,
+        )
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.verbose:
         set_verbosity("DEBUG")
-    if args.compute_cigar or args.profile:
-        flag = "-x/--compute-cigar" if args.compute_cigar else "--profile"
-        LOG.error("%s is not supported by wfa_tpu_torch yet (see ROADMAP.md).", flag)
+    if args.profile:
+        LOG.error("--profile is not supported by wfa_tpu_torch yet (see ROADMAP.md).")
         return 1
 
     LOG.info("Detected %s", describe())
@@ -130,6 +178,7 @@ def main(argv: list[str] | None = None) -> int:
     opts = AlignmentOptions(
         penalties=pen,
         max_error=max_error,
+        compute_cigar=args.compute_cigar,
         batch_size=batch_size,
         band=band,
         band_width=args.band_width,
@@ -145,29 +194,7 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     if args.check:
-        # Scores against the exact CPU oracle; in banded mode a score off the
-        # optimum counts as incorrect and recall is reported.
-        if ensure_native():
-            oracle, _, _ = native.cpu_align_batch(
-                batch.patterns, batch.texts, pen,
-                np.ones(len(batch), dtype=np.int8), False, adaptive=False,
-            )
-        else:
-            from wfa_tpu.utils.cpu_wfa import align_one_py
-
-            oracle = [
-                align_one_py(p, t, pen, False)[0]
-                for p, t in zip(batch.patterns, batch.texts)
-            ]
-        ncorrect = sum(r.error == oracle[i] for i, r in enumerate(results))
-        nincorrect = len(results) - ncorrect
-        print(f"correct={ncorrect} incorrect={nincorrect}", file=sys.stderr)
-        if opts.banded and results:
-            print(
-                f"recall={100.0 * ncorrect / len(results):.2f}%"
-                f" ({ncorrect}/{len(results)} scores optimal)",
-                file=sys.stderr,
-            )
+        _check(args, batch, results, pen, opts.banded)
 
     if args.output_file or args.print_output:
         fp = sys.stderr if args.print_output else open(args.output_file, "w")

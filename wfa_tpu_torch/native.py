@@ -1,0 +1,415 @@
+"""ctypes bindings of the native C++ host library (``native/*.cpp``).
+
+The port's own copy of ``wfa_tpu/native.py``.  The library provides the host
+hot paths, mirroring the reference's native layers:
+
+* ``wfa_cpu_align_*`` — the CPU WFA fallback engine and exact oracle (role of
+  utils/wfa_cpu.c over the vendored WFA2-lib).
+* ``wfa_traceback_batch*`` and ``wfa_cigar_from_ops_batch`` — CIGARs from
+  device choice tables or walked op streams (role of utils/cigar.c
+  ``recover_cigar_affine``).
+* ``wfa_pack_batch`` and ``wfa_read_*`` — packing and the .seq / FASTA
+  readers (role of utils/sequence_reader.c).
+
+The library is built from the repository's ``native/`` sources into a
+directory of the port's own, once per process, by
+``wfa_tpu_torch.ops._build.ensure_native``; this module loads that library
+and no other.  Every entry point has a Python fallback elsewhere in the
+package: ``available()`` says whether the library could be built.
+"""
+from __future__ import annotations
+
+import ctypes as ct
+import threading
+
+import numpy as np
+
+from .ops import _build
+from .types import Penalties
+
+
+class NativeUnavailable(RuntimeError):
+    pass
+
+
+_lib: ct.CDLL | None = None
+_lock = threading.Lock()
+
+
+def get_lib() -> ct.CDLL:
+    """The loaded library, built on first use; raises NativeUnavailable."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            if not _build.ensure_native():
+                raise NativeUnavailable(
+                    f"{_build.native_library_path()} could not be built "
+                    "from native/"
+                )
+            _lib = _load_and_bind(str(_build.native_library_path()))
+        return _lib
+
+
+def _load_and_bind(path: str) -> ct.CDLL:
+    lib = ct.CDLL(path)
+    p, i32, i64 = ct.c_void_p, ct.c_int, ct.c_int64
+    lib.wfa_cpu_num_threads.restype = i32
+    lib.wfa_cpu_num_threads.argtypes = []
+    lib.wfa_cpu_align_single.restype = i32
+    lib.wfa_cpu_align_single.argtypes = [
+        ct.c_char_p, i32, ct.c_char_p, i32, i32, i32, i32,
+    ]
+    lib.wfa_cpu_align_batch.restype = None
+    lib.wfa_cpu_align_batch.argtypes = [
+        p, p, p, p, p, p, i64, i32, i32, i32, p, p, i64, p, i32,
+    ]
+    lib.wfa_traceback_batch.restype = None
+    lib.wfa_traceback_batch.argtypes = [
+        p, p, i64, i64, i64, p, i64, p, p,
+        p, p, p, p, p, i32, i32, i32, p, i64, p,
+    ]
+    lib.wfa_cigar_from_ops_batch.restype = None
+    lib.wfa_cigar_from_ops_batch.argtypes = [
+        p, i64, i64, p, p, p, p, p, p, p, p, i64, p,
+    ]
+    lib.wfa_traceback_batch_packed.restype = None
+    lib.wfa_traceback_batch_packed.argtypes = [
+        p, i64, i64, i64, p, i64, ct.c_int32, p, p,
+        p, p, p, p, p, i32, i32, i32, p, i64, p,
+    ]
+    lib.wfa_pack_batch.restype = None
+    lib.wfa_pack_batch.argtypes = [
+        p, p, p, ct.c_int32, ct.c_int32, ct.c_int32, p, p,
+    ]
+    lib.wfa_read_seq_scan.restype = i64
+    lib.wfa_read_seq_scan.argtypes = [ct.c_char_p, ct.POINTER(ct.c_int64)]
+    lib.wfa_read_seq_load.restype = i64
+    lib.wfa_read_seq_load.argtypes = [ct.c_char_p, p, p, p, p, p, i64]
+    lib.wfa_read_fasta_scan.restype = i64
+    lib.wfa_read_fasta_scan.argtypes = [
+        ct.c_char_p, ct.c_char_p, ct.POINTER(ct.c_int64),
+    ]
+    lib.wfa_read_fasta_load.restype = i64
+    lib.wfa_read_fasta_load.argtypes = [
+        ct.c_char_p, ct.c_char_p, p, p, p, p, p, i64,
+    ]
+    return lib
+
+
+def available() -> bool:
+    try:
+        get_lib()
+        return True
+    except NativeUnavailable:
+        return False
+
+
+def _ptr(a: np.ndarray):
+    return a.ctypes.data_as(ct.c_void_p)
+
+
+def cpu_align_single(pattern: bytes, text: bytes, pen: Penalties) -> int:
+    """Exact single-pair oracle (compute_alignment_cpu analog)."""
+    return get_lib().wfa_cpu_align_single(
+        pattern, len(pattern), text, len(text), pen.x, pen.o, pen.e
+    )
+
+
+def pack_batch_native(
+    seqs: list[bytes], out_words: int, max_seq_len: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One-pass C++ packing and ACGT validity; the semantics of
+    ``ops.packing.pack_batch``.  Returns (packed[B, out_words] u32,
+    lengths[B] i32, valid[B] bool)."""
+    lib = get_lib()
+    b = len(seqs)
+    lengths = np.fromiter((len(s) for s in seqs), dtype=np.int64, count=b)
+    starts = np.zeros(b, dtype=np.int64)
+    if b > 1:
+        np.cumsum(lengths[:-1], out=starts[1:])
+    flat = np.frombuffer(b"".join(seqs) if b else b"\0", dtype=np.uint8)
+    lengths32 = lengths.astype(np.int32)
+    out = np.empty((b, out_words), dtype=np.uint32)
+    valid = np.empty(b, dtype=np.uint8)
+    lib.wfa_pack_batch(
+        _ptr(flat), _ptr(starts), _ptr(lengths32),
+        ct.c_int32(b), ct.c_int32(out_words), ct.c_int32(max_seq_len),
+        _ptr(out), _ptr(valid),
+    )
+    return out, lengths32, valid != 0
+
+
+def _flat_seqs(patterns, texts):
+    p_off = np.zeros(len(patterns), dtype=np.int64)
+    t_off = np.zeros(len(patterns), dtype=np.int64)
+    p_len = np.array([len(p) for p in patterns], dtype=np.int32)
+    t_len = np.array([len(t) for t in texts], dtype=np.int32)
+    total = int(p_len.sum() + t_len.sum())
+    buf = np.empty(max(total, 1), dtype=np.uint8)
+    pos = 0
+    for i, (p, t) in enumerate(zip(patterns, texts)):
+        p_off[i] = pos
+        buf[pos : pos + len(p)] = np.frombuffer(p, dtype=np.uint8)
+        pos += len(p)
+        t_off[i] = pos
+        buf[pos : pos + len(t)] = np.frombuffer(t, dtype=np.uint8)
+        pos += len(t)
+    return buf, p_off, t_off, p_len, t_len
+
+
+def _cigars_from_buffer(cig_buf, cigar_stride, status, n) -> list[str | None]:
+    raw = cig_buf.tobytes()
+    return [
+        raw[i * cigar_stride : (i + 1) * cigar_stride].split(b"\0", 1)[0].decode()
+        if status[i] == 1 else None
+        for i in range(n)
+    ]
+
+
+def cpu_align_batch(
+    patterns: list[bytes],
+    texts: list[bytes],
+    pen: Penalties,
+    mask: np.ndarray,
+    compute_cigar: bool,
+    cigar_stride: int = 0,
+    adaptive: bool = False,
+) -> tuple[np.ndarray, list[str | None], np.ndarray]:
+    """Batch CPU alignment (compute_alignments_cpu_threaded analog).
+
+    ``adaptive`` turns on the WFA-adaptive heuristic, as the reference does
+    for the CPU pass when the device ran banded (utils/wfa_cpu.c:40-48).
+    Returns (distances, cigars, status); cigars are None for skipped pairs.
+    Rows whose CIGAR overflows the stride are retried with a wider one.
+    """
+    lib = get_lib()
+    n = len(patterns)
+    buf, p_off, t_off, p_len, t_len = _flat_seqs(patterns, texts)
+    mask8 = np.ascontiguousarray(mask, dtype=np.int8)
+    dist = np.zeros(n, dtype=np.int32)
+    status = np.zeros(n, dtype=np.int8)
+    adp = 1 if adaptive else 0
+
+    if not compute_cigar:
+        lib.wfa_cpu_align_batch(
+            _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
+            _ptr(mask8), n, pen.x, pen.o, pen.e,
+            _ptr(dist), None, 0, _ptr(status), adp,
+        )
+        return dist, [None] * n, status
+
+    if cigar_stride <= 0:
+        cigar_stride = 4096
+    cig_buf = np.zeros(n * cigar_stride, dtype=np.uint8)
+    lib.wfa_cpu_align_batch(
+        _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
+        _ptr(mask8), n, pen.x, pen.o, pen.e,
+        _ptr(dist), _ptr(cig_buf), cigar_stride, _ptr(status), adp,
+    )
+    cigars = _cigars_from_buffer(cig_buf, cigar_stride, status, n)
+    over = np.flatnonzero(status == 2)
+    if over.size:
+        sub_d, sub_c, sub_s = cpu_align_batch(
+            [patterns[i] for i in over], [texts[i] for i in over],
+            pen, mask8[over], True, cigar_stride * 4, adaptive,
+        )
+        dist[over], status[over] = sub_d, sub_s
+        for j, i in enumerate(over):
+            cigars[i] = sub_c[j]
+    return dist, cigars, status
+
+
+def traceback_batch(
+    choices: np.ndarray,      # [S, B, W] uint8
+    lo_trace: np.ndarray,     # [S, B] int32
+    step_of_score: np.ndarray,  # [max_score+1] int32, -1 where absent
+    distances: np.ndarray,    # [B] int32
+    finished: np.ndarray,     # [B] bool
+    patterns: list[bytes],
+    texts: list[bytes],
+    pen: Penalties,
+    cigar_stride: int = 0,
+) -> tuple[list[str | None], np.ndarray]:
+    """CIGARs from the per-step choice table of the plain engine."""
+    lib = get_lib()
+    S, B, W = choices.shape
+    choices = np.ascontiguousarray(choices, dtype=np.uint8)
+    lo_trace = np.ascontiguousarray(lo_trace, dtype=np.int32)
+    step_of_score = np.ascontiguousarray(step_of_score, dtype=np.int32)
+    distances = np.ascontiguousarray(distances, dtype=np.int32)
+    fin8 = np.ascontiguousarray(finished, dtype=np.int8)
+    buf, p_off, t_off, p_len, t_len = _flat_seqs(patterns, texts)
+    status = np.zeros(B, dtype=np.int8)
+    if cigar_stride <= 0:
+        cigar_stride = max(64, 8 * int(distances.max(initial=0)) + 64)
+    cig_buf = np.zeros(B * cigar_stride, dtype=np.uint8)
+    lib.wfa_traceback_batch(
+        _ptr(choices), _ptr(lo_trace), S, B, W,
+        _ptr(step_of_score), len(step_of_score) - 1,
+        _ptr(distances), _ptr(fin8),
+        _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
+        pen.x, pen.o, pen.e,
+        _ptr(cig_buf), cigar_stride, _ptr(status),
+    )
+    bad = status > 2
+    if bad.any():
+        raise RuntimeError(
+            f"traceback failed for {bad.sum()} alignments (codes "
+            f"{np.unique(status[bad])})"
+        )
+    cigars = _cigars_from_buffer(cig_buf, cigar_stride, status, B)
+    over = np.flatnonzero(status == 2)
+    if over.size:  # retry the overflowing subset only
+        sub_c, sub_s = traceback_batch(
+            choices[:, over], lo_trace[:, over], step_of_score,
+            distances[over], finished[over],
+            [patterns[i] for i in over], [texts[i] for i in over],
+            pen, cigar_stride * 4,
+        )
+        status[over] = sub_s
+        for j, i in enumerate(over):
+            cigars[i] = sub_c[j]
+    return cigars, status
+
+
+def cigar_from_ops_batch(
+    ops_words: np.ndarray,    # [B, OPW] int32 backward 2-bit op streams
+    n_ops: np.ndarray,        # [B] int32 (-1 = corrupt walk)
+    finished: np.ndarray,     # [B] bool
+    patterns: list[bytes],
+    texts: list[bytes],
+    cigar_stride: int = 0,
+) -> tuple[list[str | None], np.ndarray]:
+    """Replay walked op streams into CIGARs (no choice table on the host);
+    a corrupt walk gives None."""
+    lib = get_lib()
+    B, OPW = ops_words.shape
+    ops_words = np.ascontiguousarray(ops_words, dtype=np.int32)
+    n_ops = np.ascontiguousarray(n_ops, dtype=np.int32)
+    fin8 = np.ascontiguousarray(finished, dtype=np.int8)
+    buf, p_off, t_off, p_len, t_len = _flat_seqs(patterns, texts)
+    status = np.zeros(B, dtype=np.int8)
+    if cigar_stride <= 0:
+        cigar_stride = max(64, 8 * int(n_ops.max(initial=0)) + 64)
+    cig_buf = np.zeros(B * cigar_stride, dtype=np.uint8)
+    lib.wfa_cigar_from_ops_batch(
+        _ptr(ops_words), B, OPW, _ptr(n_ops), _ptr(fin8),
+        _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
+        _ptr(cig_buf), cigar_stride, _ptr(status),
+    )
+    cigars = _cigars_from_buffer(cig_buf, cigar_stride, status, B)
+    over = np.flatnonzero(status == 2)
+    if over.size:  # retry the overflowing subset only
+        sub_c, sub_s = cigar_from_ops_batch(
+            ops_words[over], n_ops[over], finished[over],
+            [patterns[i] for i in over], [texts[i] for i in over],
+            cigar_stride * 4,
+        )
+        status[over] = sub_s
+        for j, i in enumerate(over):
+            cigars[i] = sub_c[j]
+    return cigars, status
+
+
+def traceback_batch_packed(
+    words: np.ndarray,          # [C, B, W] int32 nibble-packed choices
+    lo_trace: np.ndarray | None,  # [B, lo_stride] int32 by score, or None
+    lo_const: int,
+    distances: np.ndarray,      # [B] int32
+    finished: np.ndarray,       # [B] bool
+    patterns: list[bytes],
+    texts: list[bytes],
+    pen: Penalties,
+    cigar_stride: int = 0,
+) -> tuple[list[str | None], np.ndarray]:
+    """CIGARs from the by-score nibble-packed choice table."""
+    lib = get_lib()
+    C, B, W = words.shape
+    words = np.ascontiguousarray(words, dtype=np.int32)
+    distances = np.ascontiguousarray(distances, dtype=np.int32)
+    fin8 = np.ascontiguousarray(finished, dtype=np.int8)
+    if lo_trace is not None:
+        lo_trace = np.ascontiguousarray(lo_trace, dtype=np.int32)
+        lo_ptr, lo_stride = _ptr(lo_trace), lo_trace.shape[1]
+    else:
+        lo_ptr, lo_stride = None, 0
+    buf, p_off, t_off, p_len, t_len = _flat_seqs(patterns, texts)
+    status = np.zeros(B, dtype=np.int8)
+    if cigar_stride <= 0:
+        cigar_stride = max(64, 8 * int(distances.max(initial=0)) + 64)
+    cig_buf = np.zeros(B * cigar_stride, dtype=np.uint8)
+    lib.wfa_traceback_batch_packed(
+        _ptr(words), C, B, W,
+        lo_ptr, lo_stride, lo_const,
+        _ptr(distances), _ptr(fin8),
+        _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
+        pen.x, pen.o, pen.e,
+        _ptr(cig_buf), cigar_stride, _ptr(status),
+    )
+    bad = status > 2
+    if bad.any():
+        raise RuntimeError(
+            f"packed traceback failed for {bad.sum()} alignments (codes "
+            f"{np.unique(status[bad])})"
+        )
+    cigars = _cigars_from_buffer(cig_buf, cigar_stride, status, B)
+    over = np.flatnonzero(status == 2)
+    if over.size:  # retry the overflowing subset only
+        sub_c, sub_s = traceback_batch_packed(
+            words[:, over],
+            lo_trace[over] if lo_trace is not None else None,
+            lo_const, distances[over], finished[over],
+            [patterns[i] for i in over], [texts[i] for i in over],
+            pen, cigar_stride * 4,
+        )
+        status[over] = sub_s
+        for j, i in enumerate(over):
+            cigars[i] = sub_c[j]
+    return cigars, status
+
+
+def _read_loaded(buf, p_off, t_off, p_len, t_len, got):
+    raw = buf.tobytes()
+    pats = [raw[p_off[i] : p_off[i] + p_len[i]] for i in range(got)]
+    txts = [raw[t_off[i] : t_off[i] + t_len[i]] for i in range(got)]
+    return pats, txts
+
+
+def read_seq_native(path: str):
+    """Fast .seq reader; returns (patterns, texts) as lists of bytes."""
+    lib = get_lib()
+    total = ct.c_int64(0)
+    n = lib.wfa_read_seq_scan(str(path).encode(), ct.byref(total))
+    if n < 0:
+        raise IOError(f"cannot read .seq file {path}")
+    buf = np.empty(max(int(total.value), 1), dtype=np.uint8)
+    p_off = np.zeros(n, dtype=np.int64)
+    t_off = np.zeros(n, dtype=np.int64)
+    p_len = np.zeros(n, dtype=np.int32)
+    t_len = np.zeros(n, dtype=np.int32)
+    got = lib.wfa_read_seq_load(
+        str(path).encode(), _ptr(buf), _ptr(p_off), _ptr(t_off),
+        _ptr(p_len), _ptr(t_len), n,
+    )
+    return _read_loaded(buf, p_off, t_off, p_len, t_len, got)
+
+
+def read_fasta_native(query_path: str, target_path: str):
+    """Fast FASTA pair reader; returns (patterns, texts)."""
+    lib = get_lib()
+    total = ct.c_int64(0)
+    n = lib.wfa_read_fasta_scan(
+        str(query_path).encode(), str(target_path).encode(), ct.byref(total)
+    )
+    if n < 0:
+        raise IOError(f"cannot read FASTA files {query_path}, {target_path}")
+    buf = np.empty(max(int(total.value), 1), dtype=np.uint8)
+    p_off = np.zeros(n, dtype=np.int64)
+    t_off = np.zeros(n, dtype=np.int64)
+    p_len = np.zeros(n, dtype=np.int32)
+    t_len = np.zeros(n, dtype=np.int32)
+    got = lib.wfa_read_fasta_load(
+        str(query_path).encode(), str(target_path).encode(), _ptr(buf),
+        _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len), n,
+    )
+    return _read_loaded(buf, p_off, t_off, p_len, t_len, got)

@@ -1,14 +1,16 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its native host library.
 
-The sources under ``ops/csrc/`` are compiled at first use with ``nvcc`` into a
-shared library with a plain C interface and loaded with ``ctypes``.  The
-library lands in ``build/cuda/`` at the repository root, named by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one is
-reused.  The compiler's output (``-Xptxas -v``: registers, shared memory,
-spills) is kept beside it as a ``.log`` file.
+Each source under ``ops/csrc/`` is compiled at first use with ``nvcc`` into a
+shared library of its own with a plain C interface, loaded with ``ctypes``.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits for
+them.  The libraries land in ``build/cuda/`` at the repository root, each
+named by a hash of its source and the flags, so an edited source rebuilds
+and an unchanged one is reused.  The compiler's output (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside each as a ``.log`` file.
 
-``ensure_native`` makes sure ``wfa_tpu``'s native host library (packing,
-readers, the CPU fallback) is built too: ``make -C native`` with its own
+``ensure_native`` builds the native host library (packing, readers, the CPU
+fallback, CIGAR decoding) from the repository's ``native/*.cpp`` into
+``build/torch_native/``, once per process: ``make -C native`` with its own
 flags, and where the host compiler has no OpenMP runtime, the same sources
 built serially.
 """
@@ -25,14 +27,20 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO = Path(__file__).resolve().parents[2]
 _BUILD_DIR = _REPO / "build" / "cuda"
-_SOURCES = ("wfa_distance.cu",)
+_NATIVE_DIR = _REPO / "build" / "torch_native"
+# Library name -> its source under csrc/.
+SOURCES = {
+    "wfa_distance": "wfa_distance.cu",     # K1 and K2
+    "wfa_traceback": "wfa_traceback.cu",   # K3
+}
+_HEADERS = ("wfa_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 _native_ok: bool | None = None
 
 
@@ -46,50 +54,83 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(name: str) -> Path:
+    """Where the library ``name`` for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    return _BUILD_DIR / f"libwfa_tpu_torch_{h.hexdigest()[:16]}.so"
+    for src in (SOURCES[name], *_HEADERS):
+        h.update((_CSRC / src).read_bytes())
+    return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless the library for them already exists."""
-    so = library_path()
-    if so.exists():
-        return so
+def build_all() -> dict[str, Path]:
+    """Compile every source whose library does not exist yet, one ``nvcc``
+    per source, all started together; raises if any fails."""
+    paths = {name: library_path(name) for name in SOURCES}
+    todo = {name: so for name, so in paths.items() if not so.exists()}
+    if not todo:
+        return paths
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / name) for name in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
-    return so
+    nvcc = _nvcc()
+    procs = {}
+    for name, so in todo.items():
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_CSRC / SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        so = todo[name]
+        so.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name]} ({proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return paths
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built on first call, with its C signatures."""
-    global _lib
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wfa_cuda_error_string.restype = ctypes.c_char_p
+    lib.wfa_cuda_error_string.argtypes = [i]
+    if name == "wfa_distance":
+        lib.wfa_distance_launch.restype = i
+        lib.wfa_distance_launch.argtypes = [
+            p, p, i, p, p, p, p, i, i, i, i, i, p, p, i, i, p,
+        ]
+        lib.wfa_cigar_launch.restype = i
+        lib.wfa_cigar_launch.argtypes = [
+            p, p, i, p, p, p, p, i, i, i, i, i, p, p,
+            p, i, p, i, i, i, p,
+        ]
+        lib.wfa_smem_optin.restype = i
+        lib.wfa_smem_optin.argtypes = [i, ctypes.POINTER(i)]
+    else:
+        lib.wfa_traceback_launch.restype = i
+        lib.wfa_traceback_launch.argtypes = [
+            p, i, p, i, p, p, p, i, i, i, i, i, i, p, i, p,
+        ]
+
+
+def load_library(name: str = "wfa_distance") -> ctypes.CDLL:
+    """The library ``name`` (every library built on the first call), with
+    its C signatures."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.wfa_distance_launch.restype = i
-            lib.wfa_distance_launch.argtypes = [
-                p, p, i, p, p, p, p, i, i, i, i, i, p, p, i, i, p,
-            ]
-            lib.wfa_smem_optin.restype = i
-            lib.wfa_smem_optin.argtypes = [i, ctypes.POINTER(i)]
-            lib.wfa_cuda_error_string.restype = ctypes.c_char_p
-            lib.wfa_cuda_error_string.argtypes = [i]
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            for lib_name, so in build_all().items():
+                if lib_name not in _libs:
+                    lib = ctypes.CDLL(str(so))
+                    _bind(lib_name, lib)
+                    _libs[lib_name] = lib
+        return _libs[name]
+
+
+def native_library_path() -> Path:
+    return _NATIVE_DIR / "libwfatpu_native.so"
 
 
 def build_native_serial(build_dir: Path) -> subprocess.CompletedProcess:
@@ -106,17 +147,19 @@ def build_native_serial(build_dir: Path) -> subprocess.CompletedProcess:
 
 
 def ensure_native() -> bool:
-    """Whether ``wfa_tpu``'s native host library is available, building it
-    once per process if not.  ``wfa_tpu.native`` runs ``make -C native``
-    itself; if that fails (``-fopenmp`` needs an OpenMP runtime the host
-    compiler may lack), the library is built serially in its place."""
+    """Whether the native host library is built, building it once per
+    process: ``make -C native`` into ``build/torch_native/`` (a no-op when
+    it is up to date), and if that fails (``-fopenmp`` needs an OpenMP
+    runtime the host compiler may lack), the serial build in its place.
+    A failed build is not retried in the same process."""
     global _native_ok
-    from wfa_tpu import native
-
     with _lock:
         if _native_ok is None:
-            _native_ok = native.available()
-            if not _native_ok:
-                build_native_serial(_REPO / "build")
-                _native_ok = native.available()
+            proc = subprocess.run(
+                ["make", "-C", str(_REPO / "native"), f"BUILD={_NATIVE_DIR}"],
+                capture_output=True, text=True, timeout=300,
+            )
+            if proc.returncode != 0:
+                build_native_serial(_NATIVE_DIR)
+            _native_ok = native_library_path().exists()
         return _native_ok

@@ -1,25 +1,45 @@
-// K1: batched gap-affine WFA, distance mode, for Hopper (sm_90a).
+// K1 and K2: batched gap-affine WFA for Hopper (sm_90a).
 //
-// Replaces wfa_tpu/ops/engine_pallas.py::_wfa_kernel with
-// compute_cigar=False and ring_hbm=False (exact and adaptive-band windows).
-// Its plain version is wfa_tpu_torch/ops/engine_torch.py::align_batch_device;
-// the two agree in every lane, including the score reported by lanes that
-// run out of steps.
+// K1 (kCigar = false) replaces wfa_tpu/ops/engine_pallas.py::_wfa_kernel
+// with compute_cigar=False and ring_hbm=False (exact and adaptive-band
+// windows).  K2 (kCigar = true) replaces the same kernel with
+// compute_cigar=True: it also records, per computed score and diagonal, the
+// 4-bit backtrace choice (_mk_choice), in the Pallas kernel's layout
+// choice[d >> 3, b, j] at nibble d & 7 (the choice spill and its trailing
+// flush), and in banded mode the window base of each score, lo_trace[b, d]
+// (the lo spill).  Their plain versions are
+// wfa_tpu_torch/ops/engine_torch.py::align_batch_device (K1) and
+// engine_torch.cigar_tables (K2); the kernels agree with them in every lane,
+// including the score reported by lanes that run out of steps, and K2's
+// tables agree wherever a backward walk can read them.
 //
 // Design: one thread block per alignment, diagonals across threads (thread t
 // owns diagonals t, t + blockDim.x, ...).  The [3A, W] M/I/D ring and the
 // per-slot window base/extent live in dynamic shared memory; the packed
 // sequences are read from global memory (L2).  The control flow comes from
-// the host schedule (wfa_tpu.schedule.build_schedule: score, out slot and
-// the three parent slots, -1 for a missing parent), so the kernel has no
+// the host schedule (wfa_tpu_torch.schedule.build_schedule: score, out slot
+// and the three parent slots, -1 for a missing parent), so the kernel has no
 // existence bitmasks and no working-set limit other than shared memory.
 // Each score costs one block barrier (two on re-centre steps); a block
 // stops as soon as its alignment is done.
 //
-// What bounds it on this card: the LCP extension of the one on-path
+// K2's choice rows: each thread ORs the nibble of each score it computes
+// into the current row word of each diagonal it owns.  The row words live in
+// shared memory (W words), not in registers, because a thread owns up to
+// W / 512 diagonals at wide exact windows; no barrier guards them, since
+// only the owner thread touches a diagonal's word.  The words go to global
+// memory, coalesced across the block, when the next scheduled score falls in
+// another row and when the block finishes, so every row holding a score up
+// to the alignment's distance is stored once, and nibbles of scores the
+// schedule skips stay 0.  Rows past the distance, and rows holding no
+// scheduled score, are not written: no walk reads them.
+//
+// What bounds them on this card: the LCP extension of the one on-path
 // diagonal is serial and divergent (its warp loops while the other 31 lanes
-// idle), and every score pays a block-wide barrier.  Making it fast (a
-// warp-cooperative extension, several alignments per block) is later work.
+// idle), and every score pays a block-wide barrier; K2 adds one coalesced
+// store of W words per 8 scores, a few percent of the bytes the card could
+// move in that time.  Making them fast (a warp-cooperative extension,
+// several alignments per block) is later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (wfa_tpu_torch/ops/_build.py).  Plain C entry
@@ -29,17 +49,20 @@
 
 #include <cuda_runtime.h>
 
+#include "wfa_common.cuh"
+
 namespace {
 
-constexpr int kNull = -32000;     // wfa_tpu.types.OFFSET_NULL
+using wfa::kNull;
 constexpr int kBig = 1 << 20;     // window bound standing in for a missing parent
 constexpr int kMaxThreads = 512;
 constexpr int kScratchInts = 66;  // argmin partials (2 per warp, <= 32 warps) + 2
 
 // Shared-memory bytes for one block; wfa_tpu_torch.ops.engine_cuda.smem_bytes
-// holds the same formula.
-__host__ __device__ inline size_t smem_bytes(int A, int W) {
-  return sizeof(int) * (3 * static_cast<size_t>(A) * W + 2 * A + kScratchInts);
+// holds the same formula.  K2 adds one choice row word per diagonal.
+__host__ __device__ inline size_t smem_bytes(int A, int W, bool cigar) {
+  return sizeof(int) * (3 * static_cast<size_t>(A) * W + 2 * A + kScratchInts +
+                        (cigar ? W : 0));
 }
 
 // Word idx of a packed row; words past the row read as zero (the plain
@@ -90,6 +113,17 @@ __device__ int extend(int off, int k, const uint32_t* pat, const uint32_t* txt,
 // A multiply, not a shift: shifting a negative int left is undefined.
 __device__ __forceinline__ int pack(int off, int op) { return off * 4 + op; }
 
+// 4-bit backtrace choice from the packed maxima (engine_pallas._mk_choice):
+// M's winning op SUB/INS/DEL -> from X/I/D; I and D gap-extend won (op 2).
+__device__ __forceinline__ uint32_t choice_of(int m_pb, int i_pb, int d_pb) {
+  const int m_op = m_pb & 3;
+  const int m_from = m_op == wfa::kOpSub   ? wfa::kMFromX
+                     : m_op == wfa::kOpIns ? wfa::kMFromI
+                                           : wfa::kMFromD;
+  return static_cast<uint32_t>(m_from | ((i_pb & 3) == 2 ? wfa::kIExtBit : 0) |
+                               ((d_pb & 3) == 2 ? wfa::kDExtBit : 0));
+}
+
 // Parent window read at a shifted position; outside [0, ext] reads NULL.
 __device__ __forceinline__ int window_read(const int* row, int rel, int ext) {
   return (rel < 0 || rel > ext) ? kNull : row[rel];
@@ -103,17 +137,17 @@ __device__ __forceinline__ void argmin_merge(int& v, int& j, int ov, int oj) {
   }
 }
 
-template <bool kBanded>
+template <bool kBanded, bool kCigar>
 __global__ void __launch_bounds__(kMaxThreads)
-wfa_distance_kernel(const uint32_t* __restrict__ pat,
-                    const uint32_t* __restrict__ txt, int nw,
-                    const int* __restrict__ plen_arr,
-                    const int* __restrict__ tlen_arr,
-                    const unsigned char* __restrict__ valid,
-                    const int* __restrict__ sched, int num_steps,
-                    int unfinished_score, int A, int W, int band,
-                    int* __restrict__ dist_out,
-                    unsigned char* __restrict__ fin_out) {
+wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
+           int nw, const int* __restrict__ plen_arr,
+           const int* __restrict__ tlen_arr,
+           const unsigned char* __restrict__ valid,
+           const int* __restrict__ sched, int num_steps, int unfinished_score,
+           int A, int W, int band, int* __restrict__ dist_out,
+           unsigned char* __restrict__ fin_out,
+           int* __restrict__ choice, int num_chunks,
+           int* __restrict__ lo_trace, int lo_stride) {
   extern __shared__ int smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -142,13 +176,29 @@ wfa_distance_kernel(const uint32_t* __restrict__ pat,
   int* win_lo = D + A * W;
   int* win_ext = win_lo + A;
   int* scratch = win_ext + A;
+  // K2: the current choice row word of each diagonal (owner thread only).
+  uint32_t* row_word = reinterpret_cast<uint32_t*>(scratch + kScratchInts);
 
   for (int i = tid; i < 3 * A * W; i += nthreads) smem[i] = kNull;
   for (int a = tid; a < A; a += nthreads) {
     win_lo[a] = 0;
     win_ext[a] = 0;
   }
+  if (kCigar) {
+    for (int j = tid; j < W; j += nthreads) row_word[j] = 0u;
+  }
   __syncthreads();
+
+  // Stores this thread's words of choice row `row` (64-bit offsets: C*B*W
+  // may pass 2^31) and clears them for the next row.
+  auto store_row = [&](int row) {
+    if (row >= num_chunks) return;
+    int* dst = choice + (static_cast<size_t>(row) * gridDim.x + b) * W;
+    for (int j = tid; j < W; j += nthreads) {
+      dst[j] = static_cast<int>(row_word[j]);
+      row_word[j] = 0u;
+    }
+  };
 
   // Score 0: extension of diagonal 0, at window index 0 (banded) or W/2.
   if (tid == 0) {
@@ -172,6 +222,9 @@ wfa_distance_kernel(const uint32_t* __restrict__ pat,
     const int sx = row[2];
     const int soe = row[3];
     const int se = row[4];
+    // K2: this is the last scheduled score of its choice row.
+    const bool row_ends =
+        s + 1 == num_steps || (sched[5 * (s + 1)] >> 3) != (d >> 3);
 
     int lo_n = -W2;
     int ext_n = W - 1;
@@ -232,6 +285,7 @@ wfa_distance_kernel(const uint32_t* __restrict__ pat,
     int* Mo = M + oslot * W;
     int* Io = I + oslot * W;
     int* Do = D + oslot * W;
+    const int nib = 4 * (d & 7);
     for (int j = tid; j < W; j += nthreads) {
       if (kBanded && j > ext_n) {
         Mo[j] = kNull;
@@ -263,16 +317,23 @@ wfa_distance_kernel(const uint32_t* __restrict__ pat,
       // Recurrence with the reference's tie-break: gap-extend (2) beats
       // gap-open (1); for M, DEL (3) beats SUB (2) beats INS (1).  The
       // >> 2 unpack is an arithmetic shift.
-      const int i_new = max(pack(i_open + 1, 1), pack(i_ext + 1, 2)) >> 2;
-      const int d_new = max(pack(d_open, 1), pack(d_ext, 2)) >> 2;
+      const int i_pb = max(pack(i_open + 1, 1), pack(i_ext + 1, 2));
+      const int d_pb = max(pack(d_open, 1), pack(d_ext, 2));
+      const int i_new = i_pb >> 2;
+      const int d_new = d_pb >> 2;
       const int m_pb = max(max(pack(x_off + 1, 2), pack(d_new, 3)), pack(i_new, 1));
       Mo[j] = extend(m_pb >> 2, k, P, T, nw, plen, tlen);
       Io[j] = i_new;
       Do[j] = d_new;
+      if (kCigar) row_word[j] |= choice_of(m_pb, i_pb, d_pb) << nib;
     }
-    if (kBanded && tid == 0) {
-      win_lo[oslot] = lo_n;
-      win_ext[oslot] = ext_n;
+    if (kCigar && row_ends) store_row(d >> 3);
+    if (tid == 0) {
+      if (kBanded) {
+        win_lo[oslot] = lo_n;
+        win_ext[oslot] = ext_n;
+      }
+      if (kCigar && kBanded) lo_trace[static_cast<size_t>(b) * lo_stride + d] = lo_n;
     }
     __syncthreads();
 
@@ -283,6 +344,7 @@ wfa_distance_kernel(const uint32_t* __restrict__ pat,
       const int m_at_t = (rel < 0 || rel > ext_n) ? kNull : Mo[rel];
       const bool hit = m_at_t == target_off;
       if (hit || (kBanded && m_at_t > target_off)) {
+        if (kCigar && !row_ends) store_row(d >> 3);  // the trailing partial row
         if (tid == 0) {
           dist_out[b] = d;
           fin_out[b] = hit ? 1 : 0;
@@ -291,18 +353,46 @@ wfa_distance_kernel(const uint32_t* __restrict__ pat,
       }
     }
   }
-  // Out of steps: unfinished, reported at the last score + 1.
+  // Out of steps: unfinished, reported at the last score + 1.  The last
+  // step ended its row, so K2 has stored every row.
   if (tid == 0) {
     dist_out[b] = unfinished_score;
     fin_out[b] = 0;
   }
 }
 
+// Sets the kernel's shared-memory limit and launches it on B blocks.
+template <bool kBanded, bool kCigar>
+int launch(const void* pat, const void* txt, int nw, const void* plen,
+           const void* tlen, const void* valid, const void* sched,
+           int num_steps, int unfinished_score, int A, int W, int band,
+           void* dist, void* fin, void* choice, int num_chunks, void* lo_trace,
+           int lo_stride, int B, int device, void* stream) {
+  if (B == 0) return 0;
+  if (W <= 0 || W % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem = smem_bytes(A, W, kCigar);
+  err = cudaFuncSetAttribute(wfa_kernel<kBanded, kCigar>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = W < kMaxThreads ? W : kMaxThreads;
+  wfa_kernel<kBanded, kCigar><<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pat), static_cast<const uint32_t*>(txt), nw,
+      static_cast<const int*>(plen), static_cast<const int*>(tlen),
+      static_cast<const unsigned char*>(valid), static_cast<const int*>(sched),
+      num_steps, unfinished_score, A, W, band, static_cast<int*>(dist),
+      static_cast<unsigned char*>(fin), static_cast<int*>(choice), num_chunks,
+      static_cast<int*>(lo_trace), lo_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches K1 on `stream` over B alignments; returns a cudaError_t (0 = ok).
+// K1 on `stream` over B alignments; returns a cudaError_t (0 = ok).
 // pat/txt: [B, nw] packed u32 rows; plen/tlen: [B] int32; valid: [B] bool;
 // sched: [num_steps, 5] int32 (score, out, mx, moe, ide slots);
 // dist: [B] int32 out; fin: [B] bool out.  W must be a multiple of 32.
@@ -311,47 +401,40 @@ int wfa_distance_launch(const void* pat, const void* txt, int nw,
                         const void* sched, int num_steps, int unfinished_score,
                         int A, int W, int band, void* dist, void* fin, int B,
                         int device, void* stream) {
-  if (B == 0) return 0;
-  if (W <= 0 || W % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(A, W);
-  const int threads = W < kMaxThreads ? W : kMaxThreads;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const uint32_t*>(pat);
-  const auto* t = static_cast<const uint32_t*>(txt);
-  const auto* pl = static_cast<const int*>(plen);
-  const auto* tl = static_cast<const int*>(tlen);
-  const auto* v = static_cast<const unsigned char*>(valid);
-  const auto* sc = static_cast<const int*>(sched);
-  auto* dd = static_cast<int*>(dist);
-  auto* ff = static_cast<unsigned char*>(fin);
   if (band > 0) {
-    err = cudaFuncSetAttribute(wfa_distance_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    wfa_distance_kernel<true><<<B, threads, smem, st>>>(
-        p, t, nw, pl, tl, v, sc, num_steps, unfinished_score, A, W, band, dd, ff);
-  } else {
-    err = cudaFuncSetAttribute(wfa_distance_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    wfa_distance_kernel<false><<<B, threads, smem, st>>>(
-        p, t, nw, pl, tl, v, sc, num_steps, unfinished_score, A, W, band, dd, ff);
+    return launch<true, false>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
+                               unfinished_score, A, W, band, dist, fin, nullptr,
+                               0, nullptr, 0, B, device, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch<false, false>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
+                              unfinished_score, A, W, band, dist, fin, nullptr,
+                              0, nullptr, 0, B, device, stream);
+}
+
+// K2: K1 plus the choice table and, when banded, the window base by score.
+// choice: [num_chunks, B, W] int32 out, the 4-bit choice of score d at
+// nibble d & 7 of row d >> 3; lo_trace: [B, lo_stride] int32 out (banded
+// only; lo_stride > the last scheduled score).
+int wfa_cigar_launch(const void* pat, const void* txt, int nw, const void* plen,
+                     const void* tlen, const void* valid, const void* sched,
+                     int num_steps, int unfinished_score, int A, int W,
+                     int band, void* dist, void* fin, void* choice,
+                     int num_chunks, void* lo_trace, int lo_stride, int B,
+                     int device, void* stream) {
+  if (band > 0) {
+    return launch<true, true>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
+                              unfinished_score, A, W, band, dist, fin, choice,
+                              num_chunks, lo_trace, lo_stride, B, device, stream);
+  }
+  return launch<false, true>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
+                             unfinished_score, A, W, band, dist, fin, choice,
+                             num_chunks, nullptr, 0, B, device, stream);
 }
 
 // Largest dynamic shared memory a block may opt in to on `device`.
 int wfa_smem_optin(int device, int* out) {
   return static_cast<int>(
       cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
-}
-
-const char* wfa_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -1,10 +1,15 @@
-"""K1 wrapper: batched WFA distance on the CUDA kernel ``csrc/wfa_distance.cu``.
+"""Wrappers of the CUDA kernels: K1 and K2 (``csrc/wfa_distance.cu``) and
+K3 (``csrc/wfa_traceback.cu``).
 
-``align_batch_cuda`` takes the tensors of ``engine_torch.align_batch_device``
-and returns the same outputs.  On CPU tensors it runs that plain version; on
-CUDA tensors it launches the kernel on the current stream or raises — it never
-falls back.  ``LAUNCHES`` counts kernel launches, so a run can show that its
-main path went through the kernel.
+``align_batch_cuda`` (K1) takes the tensors of
+``engine_torch.align_batch_device`` and returns the same outputs.
+``cigar_tables_cuda`` (K2) returns those of ``engine_torch.cigar_tables``,
+``traceback_cuda`` (K3) those of ``traceback_torch.traceback_batch_device``,
+and ``align_cigar_cuda`` launches K2 then K3 and returns the fused rows of
+``traceback_torch.align_cigar_fused``.  On CPU tensors each runs its plain
+version; on CUDA tensors it launches its kernel on the current stream or
+raises — it never falls back.  ``LAUNCHES`` counts each kernel's launches,
+so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -13,28 +18,30 @@ import functools
 
 import torch
 
-from wfa_tpu.schedule import build_schedule
-
-from . import engine_torch
+from ..schedule import build_schedule
+from . import engine_torch, traceback_torch
 from ._build import load_library
 from .engine_torch import EngineConfig
+from .traceback_torch import TracebackConfig
 
-LAUNCHES = 0
+LAUNCHES = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0}
 
 _SCRATCH_INTS = 66  # kScratchInts in csrc/wfa_distance.cu
 
 
-def smem_bytes(active_working_set: int, width: int) -> int:
+def smem_bytes(active_working_set: int, width: int, cigar: bool = False) -> int:
     """Shared memory of one block: the [3A, W] int32 ring, the per-slot
-    window base and extent, and the argmin scratch (csrc smem_bytes)."""
+    window base and extent, the argmin scratch and, for K2, one choice row
+    word per diagonal (csrc smem_bytes)."""
     A = active_working_set
-    return 4 * (3 * A * width + 2 * A + _SCRATCH_INTS)
+    return 4 * (3 * A * width + 2 * A + _SCRATCH_INTS + (width if cigar else 0))
 
 
-def max_width(active_working_set: int, smem: int) -> int:
-    """Widest multiple-of-128 window whose ring fits ``smem`` bytes."""
+def max_width(active_working_set: int, smem: int, cigar: bool = False) -> int:
+    """Widest multiple-of-128 window whose block fits ``smem`` bytes."""
     A = active_working_set
-    return (smem - 4 * (2 * A + _SCRATCH_INTS)) // (12 * A) // 128 * 128
+    per_diagonal = 4 * (3 * A + (1 if cigar else 0))
+    return (smem - 4 * (2 * A + _SCRATCH_INTS)) // per_diagonal // 128 * 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,7 +62,8 @@ def _schedule_tensor(penalties, max_steps, score_limit, device):
             sched.moe_slot, sched.ide_slot,
         )
     ], dim=1).to(torch.int32).contiguous()
-    return rows.to(device), sched.num_steps, sched.unfinished_score
+    last = int(sched.score[-1]) if sched.num_steps else 0
+    return rows.to(device), sched.num_steps, sched.unfinished_score, last
 
 
 def _check(lib, rc: int) -> None:
@@ -63,6 +71,44 @@ def _check(lib, rc: int) -> None:
         raise RuntimeError(
             f"CUDA error {rc}: {lib.wfa_cuda_error_string(rc).decode()}"
         )
+
+
+def _check_inputs(device, **tensors) -> None:
+    """Each (tensor, dtype, shape) must lie on ``device``, contiguous."""
+    for name, (t, dtype, shape) in tensors.items():
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool):
+    """Validate the inputs of K1/K2 on a CUDA device; returns (B, nw)."""
+    device = pat.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    B, nw = pat.shape
+    _check_inputs(
+        device,
+        pat=(pat, torch.int32, (B, nw)), txt=(txt, torch.int32, (B, nw)),
+        plen=(plen, torch.int32, (B,)), tlen=(tlen, torch.int32, (B,)),
+        valid=(valid, torch.bool, (B,)),
+    )
+    W = cfg.wf_width
+    if W <= 0 or W % 32:
+        raise ValueError(f"wf_width {W} must be a positive multiple of 32")
+    A = cfg.penalties.active_working_set
+    need = smem_bytes(A, W, cigar)
+    have = smem_optin(device)
+    if need > have:
+        raise ValueError(
+            f"block of {need} bytes of shared memory (A={A}, W={W}, "
+            f"cigar={cigar}) exceeds the {have} bytes a block may use"
+        )
+    return B, nw
 
 
 def align_batch_cuda(
@@ -73,52 +119,148 @@ def align_batch_cuda(
     tlen: torch.Tensor,   # [B] int32
     valid: torch.Tensor,  # [B] bool
 ) -> dict[str, torch.Tensor]:
-    """Distances and finished flags of one batch; see module docstring."""
+    """K1: distances and finished flags of one batch."""
     if pat.device.type == "cpu":
         return engine_torch.align_batch_device(cfg, pat, txt, plen, tlen, valid)
-    global LAUNCHES
+    B, nw = _check_batch(cfg, pat, txt, plen, tlen, valid, cigar=False)
     device = pat.device
-    if device.type != "cuda":
-        raise ValueError(f"align_batch_cuda: unsupported device {device}")
-    B, nw = pat.shape
-    for name, t, dtype, shape in (
-        ("pat", pat, torch.int32, (B, nw)),
-        ("txt", txt, torch.int32, (B, nw)),
-        ("plen", plen, torch.int32, (B,)),
-        ("tlen", tlen, torch.int32, (B,)),
-        ("valid", valid, torch.bool, (B,)),
-    ):
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    W = cfg.wf_width
-    if W <= 0 or W % 32:
-        raise ValueError(f"wf_width {W} must be a positive multiple of 32")
-    A = cfg.penalties.active_working_set
-    need = smem_bytes(A, W)
-    have = smem_optin(device)
-    if need > have:
-        raise ValueError(
-            f"wavefront ring of {need} bytes (A={A}, W={W}) exceeds the "
-            f"{have} bytes of shared memory a block may use"
-        )
-    sched, num_steps, unfinished = _schedule_tensor(
+    sched, num_steps, unfinished, _ = _schedule_tensor(
         cfg.penalties, cfg.max_steps, cfg.score_limit, device
     )
     dist = torch.empty(B, dtype=torch.int32, device=device)
     fin = torch.empty(B, dtype=torch.bool, device=device)
-    lib = load_library()
+    lib = load_library("wfa_distance")
     stream = torch.cuda.current_stream(device).cuda_stream
     _check(lib, lib.wfa_distance_launch(
         pat.data_ptr(), txt.data_ptr(), nw,
         plen.data_ptr(), tlen.data_ptr(), valid.data_ptr(),
         sched.data_ptr(), num_steps, unfinished,
-        A, W, cfg.band if cfg.banded else -1,
+        cfg.penalties.active_working_set, cfg.wf_width,
+        cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(), B, device.index, stream,
     ))
-    LAUNCHES += 1
+    LAUNCHES["wfa_distance"] += 1
     return {"distance": dist, "finished": fin}
+
+
+def cigar_tables_cuda(
+    cfg: EngineConfig, score_cap: int, pat, txt, plen, tlen, valid,
+) -> dict[str, torch.Tensor]:
+    """K2: ``distance``, ``finished``, ``choice_words`` [score_cap//8 + 2,
+    B, W] int32 and, banded, ``lo_trace`` [B, lo_pad(score_cap)] int32.
+
+    The table and ``lo_trace`` come from ``torch.empty``, not
+    ``torch.zeros``: K2 stores every row that holds a scheduled score up to
+    each alignment's distance, and K3 reads no other, so clearing the table
+    (310 MB at HiFi x8, a memset about as long as a tenth of K2) buys
+    nothing.  Rows past an alignment's distance hold whatever the memory
+    held; compare tables only where a walk can read."""
+    if pat.device.type == "cpu":
+        return engine_torch.cigar_tables(
+            cfg, score_cap, pat, txt, plen, tlen, valid
+        )
+    B, nw = _check_batch(cfg, pat, txt, plen, tlen, valid, cigar=True)
+    device = pat.device
+    sched, num_steps, unfinished, last = _schedule_tensor(
+        cfg.penalties, cfg.max_steps, cfg.score_limit, device
+    )
+    if last >= score_cap:
+        raise ValueError(
+            f"schedule reaches score {last}, past the table's score_cap "
+            f"{score_cap}"
+        )
+    C = engine_torch.num_chunks(score_cap)
+    W = cfg.wf_width
+    dist = torch.empty(B, dtype=torch.int32, device=device)
+    fin = torch.empty(B, dtype=torch.bool, device=device)
+    words = torch.empty((C, B, W), dtype=torch.int32, device=device)
+    res = {"distance": dist, "finished": fin, "choice_words": words}
+    lo_ptr, lo_stride = None, 0
+    if cfg.banded:
+        lo_stride = engine_torch.lo_pad(score_cap)
+        res["lo_trace"] = torch.empty((B, lo_stride), dtype=torch.int32,
+                                      device=device)
+        lo_ptr = res["lo_trace"].data_ptr()
+    lib = load_library("wfa_distance")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _check(lib, lib.wfa_cigar_launch(
+        pat.data_ptr(), txt.data_ptr(), nw,
+        plen.data_ptr(), tlen.data_ptr(), valid.data_ptr(),
+        sched.data_ptr(), num_steps, unfinished,
+        cfg.penalties.active_working_set, W, cfg.band if cfg.banded else -1,
+        dist.data_ptr(), fin.data_ptr(), words.data_ptr(), C,
+        lo_ptr, lo_stride, B, device.index, stream,
+    ))
+    LAUNCHES["wfa_cigar"] += 1
+    return res
+
+
+def traceback_cuda(
+    tb_cfg: TracebackConfig,
+    choice_words: torch.Tensor,      # [C, B, W] int32
+    lo_trace: torch.Tensor | None,   # [B, lo_pad] int32 (banded) or None
+    dist: torch.Tensor,              # [B] int32
+    fin: torch.Tensor,               # [B] bool
+    target_k: torch.Tensor,          # [B] int32
+) -> torch.Tensor:
+    """K3: the fused rows [B, 4 + opw] int32 (distance, finished, n_ops, 0,
+    ops...)."""
+    device = choice_words.device
+    if device.type == "cpu":
+        tb = traceback_torch.traceback_batch_device(
+            tb_cfg, choice_words, lo_trace, dist, fin, target_k
+        )
+        return traceback_torch.fuse(dist, fin, tb["n_ops"], tb["ops"])
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    C, B, W = choice_words.shape
+    if C != tb_cfg.num_chunks or W != tb_cfg.wf_width:
+        raise ValueError(
+            f"choice table {tuple(choice_words.shape)} does not match "
+            f"score_cap {tb_cfg.score_cap} and W {tb_cfg.wf_width}"
+        )
+    tensors = dict(
+        choice_words=(choice_words, torch.int32, (C, B, W)),
+        dist=(dist, torch.int32, (B,)), fin=(fin, torch.bool, (B,)),
+        target_k=(target_k, torch.int32, (B,)),
+    )
+    if tb_cfg.banded:
+        tensors["lo_trace"] = (lo_trace, torch.int32, (B, tb_cfg.lo_pad))
+    _check_inputs(device, **tensors)
+    opw = tb_cfg.opw
+    out = torch.empty((B, 4 + opw), dtype=torch.int32, device=device)
+    pen = tb_cfg.penalties
+    lib = load_library("wfa_traceback")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _check(lib, lib.wfa_traceback_launch(
+        choice_words.data_ptr(), C,
+        lo_trace.data_ptr() if tb_cfg.banded else None,
+        tb_cfg.lo_pad if tb_cfg.banded else 0,
+        dist.data_ptr(), fin.data_ptr(), target_k.data_ptr(),
+        B, W, pen.x, pen.o, pen.e, opw, out.data_ptr(), device.index, stream,
+    ))
+    LAUNCHES["wfa_traceback"] += 1
+    return out
+
+
+def align_cigar_cuda(
+    cfg: EngineConfig, tb_cfg: TracebackConfig, pat, txt, plen, tlen, valid,
+) -> torch.Tensor:
+    """K2 then K3 on the current stream: [B, 4 + opw] int32 rows (distance,
+    finished, n_ops, 0, ops...), the output of
+    ``traceback_torch.align_cigar_fused``."""
+    if pat.device.type == "cpu":
+        return traceback_torch.align_cigar_fused(
+            cfg, tb_cfg, pat, txt, plen, tlen, valid
+        )
+    if (cfg.wf_width, cfg.banded) != (tb_cfg.wf_width, tb_cfg.banded):
+        raise ValueError("the engine and traceback configs disagree")
+    if cfg.banded and tb_cfg.lo_pad != engine_torch.lo_pad(tb_cfg.score_cap):
+        raise ValueError(f"lo_pad must be {engine_torch.lo_pad(tb_cfg.score_cap)}")
+    tables = cigar_tables_cuda(
+        cfg, tb_cfg.score_cap, pat, txt, plen, tlen, valid
+    )
+    return traceback_cuda(
+        tb_cfg, tables["choice_words"], tables.get("lo_trace"),
+        tables["distance"], tables["finished"], tlen - plen,
+    )

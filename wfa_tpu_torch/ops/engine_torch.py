@@ -1,14 +1,18 @@
-"""Batched gap-affine WFA engine in plain PyTorch (distance mode).
+"""Batched gap-affine WFA engine in plain PyTorch.
 
-A line-for-line port of ``wfa_tpu/ops/engine_xla.py`` in distance mode: the
-same host-precomputed schedule (``wfa_tpu.schedule.build_schedule``), the same
-``(offset << 2) | op`` tie-breaking, the same exact and adaptive-band windows.
-On the same packed inputs its ``distance`` and ``finished`` equal
-``engine_xla.align_batch_device`` in every lane.
+A line-for-line port of ``wfa_tpu/ops/engine_xla.py``: the same
+host-precomputed schedule (``wfa_tpu_torch.schedule.build_schedule``), the
+same ``(offset << 2) | op`` tie-breaking, the same exact and adaptive-band
+windows, and in CIGAR mode the same per-step ``choices`` and ``lo_trace``.
+On the same packed inputs its outputs equal ``engine_xla.align_batch_device``
+in every lane.
 
 It is the CPU engine of the port and the plain version of the hand-written
-CUDA kernel (``ops/csrc/wfa_distance.cu``), which must equal it in every lane.
-Unlike the TPU kernel it has no limit on the working set.
+CUDA kernels of ``ops/csrc/wfa_distance.cu``: K1 must equal
+``align_batch_device`` in every lane, and K2 must equal ``cigar_tables`` (this
+engine plus ``choices_to_words``, the relayout into the Pallas kernel's
+by-score table) wherever a backward walk can read.  Unlike the TPU kernel it
+has no limit on the working set.
 
 Torch specifics:
 
@@ -28,8 +32,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from wfa_tpu.schedule import build_schedule
-from wfa_tpu.types import OFFSET_NULL, AffineOp, Penalties
+from ..schedule import WavefrontSchedule, build_schedule
+from ..types import OFFSET_NULL, AffineOp, Penalties
 
 INT32_MAX = 2**31 - 1
 _MASK32 = 0xFFFFFFFF
@@ -37,11 +41,19 @@ _MASK32 = 0xFFFFFFFF
 _BIG = 2**20
 # 16-base chunks the plain extension compares per loop iteration.
 _CHUNKS = 8
+_LANE = 128
+
+# Choice encoding of the CIGAR mode (engine_xla.py:50-55).
+M_FROM_X = 0
+M_FROM_I = 1
+M_FROM_D = 2
+I_FROM_EXTEND_BIT = 2
+D_FROM_EXTEND_BIT = 3
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine configuration for one batch shape (distance mode)."""
+    """Engine configuration for one batch shape."""
 
     penalties: Penalties
     max_steps: int          # reference `max_error` / max_steps
@@ -50,6 +62,8 @@ class EngineConfig:
     # Optional cap on the highest score the schedule enumerates (see
     # wfa_tpu.ops.engine_xla.EngineConfig.score_limit).
     score_limit: int | None = None
+    # Also return the per-step backtrace choices and window bases.
+    compute_cigar: bool = False
 
     @property
     def banded(self) -> bool:
@@ -62,10 +76,6 @@ def config_from_tpu(cfg) -> EngineConfig:
 
     A Pallas ``score_cap`` stops the loop at ``d < score_cap``, which is the
     schedule's ``score_limit = score_cap - 1``; 0 means no cap."""
-    if getattr(cfg, "compute_cigar", False):
-        raise NotImplementedError(
-            "CIGAR path is not ported yet (ROADMAP.md queue 1, item 7)"
-        )
     if hasattr(cfg, "score_limit"):
         limit = cfg.score_limit
     else:
@@ -77,6 +87,7 @@ def config_from_tpu(cfg) -> EngineConfig:
         wf_width=cfg.wf_width,
         band=cfg.band,
         score_limit=limit,
+        compute_cigar=cfg.compute_cigar,
     )
 
 
@@ -211,7 +222,12 @@ def align_batch_device(
     valid: torch.Tensor,  # [B] bool — False routes to the CPU fallback
 ) -> dict[str, torch.Tensor]:
     """Align one batch of B pairs on ``pat.device``; returns ``distance``
-    (int32 [B]) and ``finished`` (bool [B])."""
+    (int32 [B]) and ``finished`` (bool [B]), and in CIGAR mode ``choices``
+    (uint8 [S, B, W], the 4-bit choice of step s at each window lane),
+    ``lo_trace`` (int32 [S, B], the window base of step s) and
+    ``ext_trace`` (int32 [S, B], its extent: lanes 0..ext are live), S the
+    schedule's number of steps; steps after the loop ends stay 0.  XLA has
+    no ``ext_trace``: it bounds the region a backward walk can read."""
     sched = build_schedule(cfg.penalties, cfg.max_steps, cfg.score_limit)
     device = pat.device
     A = cfg.penalties.active_working_set
@@ -256,6 +272,11 @@ def align_batch_device(
     exact_k = jrange - W2
     exact_lo = torch.full((B,), -W2, **i32)
     exact_ext = torch.full((B,), W - 1, **i32)
+    if cfg.compute_cigar:
+        S = sched.num_steps
+        choices = torch.zeros((S, B, W), dtype=torch.uint8, device=device)
+        lo_trace = torch.zeros((S, B), **i32)
+        ext_trace = torch.zeros((S, B), **i32)
 
     for s in range(sched.num_steps):
         if bool(done.all()):
@@ -336,8 +357,10 @@ def align_batch_device(
 
         # I/D/M recurrence with the reference's tie-breaking
         # (engine_xla.py:361-372).
-        I_new = torch.maximum(_pack(I_open, 1), _pack(I_ext, 2)) >> 2
-        D_new = torch.maximum(_pack(D_open, 1), _pack(D_ext, 2)) >> 2
+        I_pb = torch.maximum(_pack(I_open, 1), _pack(I_ext, 2))
+        D_pb = torch.maximum(_pack(D_open, 1), _pack(D_ext, 2))
+        I_new = I_pb >> 2
+        D_new = D_pb >> 2
         M_pb = torch.maximum(
             torch.maximum(
                 _pack(X_off, int(AffineOp.SUB)), _pack(D_new, int(AffineOp.DEL))
@@ -364,14 +387,20 @@ def align_batch_device(
         dist = torch.where(newly, d, dist)
         done = done | newly
 
-        # Commit to the ring.  A done lane's rows are never read into its
-        # result again, so distance mode needs no freeze of finished lanes.
-        M[oslot] = M_new
-        I[oslot] = I_new
-        D[oslot] = D_new
+        # Commit to the ring, except for lanes that were already done: their
+        # final wavefronts stay frozen (engine_xla.py:398-422), which keeps
+        # the choices recorded for them equal to XLA's.
+        live = ~done[:, None] | newly[:, None]
+        M[oslot] = torch.where(live, M_new, M[oslot])
+        I[oslot] = torch.where(live, I_new, I[oslot])
+        D[oslot] = torch.where(live, D_new, D[oslot])
         if cfg.banded:
-            lo[oslot] = lo_n
-            ext[oslot] = ext_n
+            lo[oslot] = torch.where(live[:, 0], lo_n, lo[oslot])
+            ext[oslot] = torch.where(live[:, 0], ext_n, ext[oslot])
+        if cfg.compute_cigar:
+            choices[s] = _choice(M_pb, I_pb, D_pb)
+            lo_trace[s] = lo_n
+            ext_trace[s] = ext_n
 
     # Lanes that ran out of steps: unfinished, score = last score + 1
     # (engine_xla.py:456-462).
@@ -379,4 +408,149 @@ def align_batch_device(
     dist = torch.where(timed_out, sched.unfinished_score, dist)
     finished = finished & ~timed_out & valid
     dist = torch.where(valid, dist, 0)
-    return {"distance": dist, "finished": finished}
+    out = {"distance": dist, "finished": finished}
+    if cfg.compute_cigar:
+        out["choices"] = choices
+        out["lo_trace"] = lo_trace
+        out["ext_trace"] = ext_trace
+    return out
+
+
+def _choice(M_pb, I_pb, D_pb) -> torch.Tensor:
+    """4-bit backtrace choice of each lane (engine_xla.py:424-433): M's
+    winning op SUB/INS/DEL -> from X/I/D, plus the I and D gap-extend bits."""
+    m_op = M_pb & 3
+    m_choice = torch.where(
+        m_op == int(AffineOp.SUB), M_FROM_X,
+        torch.where(m_op == int(AffineOp.INS), M_FROM_I, M_FROM_D),
+    )
+    ch = (
+        m_choice
+        | (((I_pb & 3) == 2).to(torch.int32) << I_FROM_EXTEND_BIT)
+        | (((D_pb & 3) == 2).to(torch.int32) << D_FROM_EXTEND_BIT)
+    )
+    return ch.to(torch.uint8)
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def num_chunks(score_cap: int) -> int:
+    """Rows of the by-score choice table: 8 scores per int32 word, plus one
+    slack row (engine_pallas.py:196-198)."""
+    return score_cap // 8 + 2
+
+
+def lo_pad(score_cap: int) -> int:
+    """Length of the banded by-score ``lo_trace`` (engine_pallas.py:200-203)."""
+    return _round_up(score_cap + 2 * _LANE, _LANE)
+
+
+def choices_to_words(
+    out: dict[str, torch.Tensor], sched: WavefrontSchedule, score_cap: int,
+    W: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Relayout the per-step ``choices``/``lo_trace`` of ``align_batch_device``
+    into the Pallas kernel's by-score layout (the relayout of
+    tests/test_pallas.py:17-31, at the kernel's table size).
+
+    Returns ``words`` int32 [score_cap//8 + 2, B, W], the 4-bit choice of
+    score d at nibble ``d & 7`` of row ``d >> 3`` and 0 for scores the
+    schedule skips, and ``lo`` int32 [B, lo_pad(score_cap)], the window base
+    of score d at column d."""
+    choices, lo_tr = out["choices"], out["lo_trace"]
+    S, B, _ = choices.shape
+    device = choices.device
+    scores = torch.from_numpy(sched.score[:S]).to(device=device, dtype=torch.int64)
+    if S and int(sched.score[S - 1]) >= score_cap:
+        raise ValueError(
+            f"schedule reaches score {int(sched.score[S - 1])}, past the table's "
+            f"score_cap {score_cap}"
+        )
+    words = torch.zeros((num_chunks(score_cap), B, W), dtype=torch.int32,
+                        device=device)
+    # A row holds at most one score per nibble, so each nibble's rows are
+    # distinct and one indexed update per nibble places them.
+    for nib in range(8):
+        sel = (scores & 7) == nib
+        rows = scores[sel] >> 3
+        words[rows] |= choices[sel].to(torch.int32) << (4 * nib)
+    lo = torch.zeros((B, lo_pad(score_cap)), dtype=torch.int32, device=device)
+    lo[:, scores] = lo_tr.T
+    return words, lo
+
+
+def cigar_tables(
+    cfg: EngineConfig, score_cap: int, pat, txt, plen, tlen, valid,
+) -> dict[str, torch.Tensor]:
+    """The plain version of K2: ``distance``, ``finished``, ``choice_words``
+    [score_cap//8 + 2, B, W] and, banded, ``lo_trace`` [B, lo_pad] — the
+    outputs of ``engine_pallas.align_batch_pallas`` with ``compute_cigar``
+    and of ``engine_cuda.cigar_tables_cuda``.  ``cfg`` runs the schedule up
+    to ``score_cap - 1``.  It also gives ``window_ext`` [B, lo_pad], the
+    window extent of each score, for ``readable_masks``."""
+    cfg = dataclasses.replace(cfg, compute_cigar=True)
+    out = align_batch_device(cfg, pat, txt, plen, tlen, valid)
+    sched = build_schedule(cfg.penalties, cfg.max_steps, cfg.score_limit)
+    words, lo = choices_to_words(out, sched, score_cap, cfg.wf_width)
+    ext = torch.zeros_like(lo)
+    S = out["ext_trace"].shape[0]
+    ext[:, torch.from_numpy(sched.score[:S]).to(lo.device, torch.int64)] = (
+        out["ext_trace"].T
+    )
+    res = {"distance": out["distance"], "finished": out["finished"],
+           "choice_words": words, "window_ext": ext}
+    if cfg.banded:
+        res["lo_trace"] = lo
+    return res
+
+
+def readable_masks(
+    cfg: EngineConfig, score_cap: int, plain: dict[str, torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Where a backward walk can read K2's tables, from the plain version's
+    ``cigar_tables`` output: for each finished lane of nonzero distance, the
+    scheduled scores 1..distance and, at each, the diagonals of that score's
+    window (lanes 0..window_ext).  Elsewhere the tables may differ: K2 stops
+    at its own alignment's distance and computes no choice outside the
+    window, while the plain engine and the Pallas kernel run on.
+
+    Returns (int64 [C, B, W] bit mask of the readable nibbles of each table
+    word, bool [B, lo_pad] mask of the readable ``lo_trace`` columns)."""
+    sched = build_schedule(cfg.penalties, cfg.max_steps, cfg.score_limit)
+    words, ext = plain["choice_words"], plain["window_ext"]
+    C, B, W = words.shape
+    device = words.device
+    scores = torch.from_numpy(sched.score).to(device=device, dtype=torch.int64)
+    walked = plain["finished"] & (plain["distance"] > 0)
+    # live[s, b]: score s is on lane b's walkable range.
+    live = walked[None, :] & (scores[:, None] <= plain["distance"][None, :].long())
+    jr = torch.arange(W, device=device)
+    mask = torch.zeros((C, B, W), dtype=torch.int64, device=device)
+    for nib in range(8):
+        sel = (scores & 7) == nib
+        in_win = jr[None, None, :] <= ext[:, scores[sel]].T[:, :, None]
+        cells = live[sel][:, :, None] & in_win
+        mask[scores[sel] >> 3] |= cells.to(torch.int64) << (4 * nib)
+    lo_mask = torch.zeros(ext.shape, dtype=torch.bool, device=device)
+    lo_mask[:, scores] = live.T
+    return mask, lo_mask
+
+
+def tables_equal(
+    cfg: EngineConfig, score_cap: int, plain: dict[str, torch.Tensor],
+    other: dict[str, torch.Tensor],
+) -> bool:
+    """Whether ``other`` (K2's or the Pallas kernel's tables) equals the
+    plain version's ``cigar_tables`` on the readable region."""
+    mask, lo_mask = readable_masks(cfg, score_cap, plain)
+    a = plain["choice_words"].to(torch.int64)
+    b = other["choice_words"].to(device=a.device, dtype=torch.int64)
+    if bool(((a ^ b) & mask).any()):
+        return False
+    if cfg.banded:
+        lo_a = plain["lo_trace"]
+        lo_b = other["lo_trace"].to(lo_a.device)[:, : lo_a.shape[1]]
+        return bool((lo_a[lo_mask] == lo_b[lo_mask]).all())
+    return True

@@ -11,10 +11,9 @@ from __future__ import annotations
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
 
-from wfa_tpu.params import AlignmentOptions, default_max_error
-from wfa_tpu.types import AlignmentResult
-
 from .aligner import align_pairs
+from .params import AlignmentOptions, default_max_error
+from .types import AlignmentResult
 
 
 def align_pairs_pipelined(
