@@ -5,20 +5,24 @@
 
 Needs one NVIDIA GPU (Hopper, sm_90a), nvcc and a C++ compiler; imports no
 jax and nothing of wfa_tpu.  It builds the CUDA kernels from the sources
-(K1 and K2: wfa_tpu_torch/ops/csrc/wfa_distance.cu; K3: wfa_traceback.cu),
-holds each against its plain PyTorch version on random pairs, drives
-align_pairs(backend='cuda') on the golden score sets in distance and CIGAR
-mode, and runs the HiFi banded workload (400 pairs of ~14 kbp, W=512, band
-25, penalties 2,3,1, max_steps 3000) in distance and CIGAR mode through the
-kernels alone, their plain versions and align_pairs, with times.  Every
-phase prints one line with its seconds; any failure ends the run with a
-nonzero exit code.  The line before the last lists every kernel with its
+(K1, K2 and K4: wfa_tpu_torch/ops/csrc/wfa_distance.cu; K3:
+wfa_traceback.cu; the ring-row probe: ring_bw.cu), holds each against its
+plain PyTorch version on random pairs, drives align_pairs(backend='cuda') on
+the golden score sets in distance and CIGAR mode, and runs through the
+kernels alone, their plain versions and align_pairs, with times: the HiFi
+banded workload (400 pairs of ~14 kbp, W=512, band 25, penalties 2,3,1,
+max_steps 3000) in distance and CIGAR mode on K1 and K2 + K3; the 100 x
+10 kbp golden set at max_error 3000 (exact, W=6016) in distance and CIGAR
+mode on K4; the 16 x 5 kbp ring-wide set (exact, W=9216) on K4; and the
+ring-row probe at two sizes.  Every phase prints one line with its seconds;
+any failure ends the run with a nonzero exit code.  The line before the last lists every kernel with its
 launches on the main paths, error against its plain version, times and
 bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -71,13 +75,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from wfa_tpu_torch import AlignmentOptions, Penalties, align_pairs, native
-    from wfa_tpu_torch.ops import _build, engine_cuda, engine_torch, traceback_torch
+    from wfa_tpu_torch import AlignmentOptions, Penalties, aligner, align_pairs, native
+    from wfa_tpu_torch.ops import (
+        _build, engine_cuda, engine_torch, ring_bw, traceback_torch,
+    )
     from wfa_tpu_torch.ops.packing import pack_batch
     from wfa_tpu_torch.schedule import build_schedule
     from wfa_tpu_torch.utils.device_query import describe
     from wfa_tpu_torch.utils.io import read_seq_file
-    from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs
+    from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs, ring_wide_pairs
     from wfa_tpu_torch.utils.verification import affine_score, check_cigar
 
     dev = torch.device("cuda", 0)
@@ -102,12 +108,12 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps, out
 
-    def cigar_configs(pen, max_steps, width, band):
+    def cigar_configs(pen, max_steps, width, band, ring_global=False):
         """The CUDA route's CIGAR geometry (aligner._tier_geometry_cuda)."""
         score_cap = build_schedule(pen, max_steps, None).unfinished_score + 1
         cfg = engine_torch.EngineConfig(
             pen, max_steps, width, band, score_limit=score_cap - 1,
-            compute_cigar=True,
+            compute_cigar=True, ring_global=ring_global,
         )
         tb = traceback_torch.TracebackConfig(
             pen, width, score_cap, banded=band > 0,
@@ -146,10 +152,62 @@ def main() -> int:
           f"library {time.perf_counter() - t0 - t_nvcc:.2f}s, {threads} CPU "
           "fallback thread(s)")
 
+    def reset_launches():
+        for counts in (engine_cuda.LAUNCHES, ring_bw.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    def fused_plain(tb, plain, args):
+        """K3's plain version on the plain K2/K4 tables: the fused rows."""
+        walk = traceback_torch.traceback_batch_device(
+            tb, plain["choice_words"], plain.get("lo_trace"),
+            plain["distance"], plain["finished"], args[3] - args[2],
+        )
+        return traceback_torch.fuse(plain["distance"], plain["finished"],
+                                    walk["n_ops"], walk["ops"])
+
+    def exact_bound(cfg, dist, fin, args, cigar):
+        """K4's bound_ms on this run's data: cells = for each scheduled
+        score up to each pair's distance (the last scheduled score if
+        unfinished), the diagonals that score can reach, |k| <= (s - o) / e
+        (only k = 0 below o + e), at most W; in CIGAR mode one stored choice
+        word per reachable diagonal per 8 scores (the widest score of the
+        8)."""
+        pen, W = cfg.penalties, cfg.wf_width
+        sched = build_schedule(pen, cfg.max_steps, cfg.score_limit)
+        scores = sched.score.astype(np.int64)
+        lanes = np.where(scores >= pen.o + pen.e,
+                         np.minimum(W, 2 * ((scores - pen.o) // pen.e) + 1), 1)
+        reach = [d if f else int(scores[-1]) if scores.size else 0
+                 for d, f in zip(dist.tolist(), fin.tolist())]
+        cells = row_words = 0
+        for d in reach:
+            upto = scores <= d
+            cells += int(lanes[upto].sum())
+            group = scores[upto] >> 3
+            last = np.append(group[1:] != group[:-1], True)
+            row_words += int(lanes[upto][last].sum())
+        nbytes = sum(t.numel() * t.element_size() for t in args) + 5 * len(reach)
+        if cigar:
+            return cells, bound_ms(nbytes + row_words * 4,
+                                   cells * OPS_PER_CELL_CIGAR)
+        return cells, bound_ms(nbytes, cells * OPS_PER_CELL)
+
+    smem = engine_cuda.smem_optin(dev)
+
+    def route_config(pats, txts, opts):
+        """The config align_pairs(backend='cuda') launches on one tier."""
+        lens = np.array([max(len(p), len(t)) for p, t in zip(pats, txts)])
+        plans = aligner._plan_tiers(lens, opts, opts.max_error)
+        require(len(plans) == 1, "expected one length tier")
+        return aligner._tier_geometry_cuda(plans[0], opts, opts.max_error,
+                                           -1, smem)
+
     # ---- 3. K1 against the plain version on the card ----
     t0 = time.perf_counter()
     rng = np.random.default_rng(20261016)
-    max_err = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0}
+    max_err = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
+               "wfa_distance_ring": 0, "wfa_cigar_ring": 0, "ring_bw": 0}
     n_cases = n_lanes = 0
     prep_s = k1_s = plain_s = 0.0
     pens = (Penalties(2, 3, 1), Penalties(1, 0, 1), Penalties(4, 1, 2))
@@ -208,6 +266,7 @@ def main() -> int:
         gold = json.loads((DATA / f"{name}.golden.json").read_text())[key]
         golden_runs.append((name, read_seq_file(DATA / f"{name}.seq"), pen, me,
                             [-g for g in gold]))
+    ring0 = engine_cuda.LAUNCHES["wfa_distance_ring"]
     shares = []
     for name, batch, pen, me, gold in golden_runs:
         t1 = time.perf_counter()
@@ -217,10 +276,12 @@ def main() -> int:
         require(len(res) == len(gold) and bad == 0,
                 f"{name}: {bad} scores differ from the goldens")
         on_card = sum(r.finished_on_accelerator for r in res)
+        require(on_card == len(res), f"{name}: {on_card}/{len(res)} on the card")
         shares.append(f"{name} {on_card}/{len(res)} on card "
                       f"({time.perf_counter() - t1:.2f}s)")
-    require(engine_cuda.LAUNCHES["wfa_distance"] > launches0,
-            "golden runs launched no kernel")
+    require(engine_cuda.LAUNCHES["wfa_distance"] > launches0
+            and engine_cuda.LAUNCHES["wfa_distance_ring"] > ring0,
+            "golden runs launched no K1 or no K4")
     phase("goldens", t0, "all scores equal; " + ", ".join(shares))
 
     # ---- 5. HiFi banded distance: 400 x ~14 kbp, W=512, band 25 ----
@@ -250,8 +311,7 @@ def main() -> int:
                             band=25, band_width=512, backend="cuda")
     align_pairs(pats[:8], txts[:8], opts)            # warm-up
     torch.cuda.synchronize()
-    for k in engine_cuda.LAUNCHES:
-        engine_cuda.LAUNCHES[k] = 0
+    reset_launches()
     t1 = time.perf_counter()
     res = align_pairs(pats, txts, opts)
     torch.cuda.synchronize()
@@ -326,19 +386,27 @@ def main() -> int:
             for r, p, t in zip(res, batch.patterns, batch.texts)
         )
         require(invalid == 0, f"{name}: {invalid} CIGARs invalid")
-        # The same geometry with the plain K2 + K3 in place of the kernels.
+        on_card = sum(r.finished_on_accelerator for r in res)
+        require(on_card == len(res),
+                f"{name} CIGAR: {on_card}/{len(res)} on the card")
+        # The same geometry with the plain K2/K4 + K3 in place of the
+        # kernels, on the pairs below tier 16384 (the plain engine syncs
+        # with the host once a score, and tier-16384 windows run ~10^4).
+        short = [i for i, (p, t) in enumerate(zip(batch.patterns, batch.texts))
+                 if aligner._tier_of(max(len(p), len(t))) < 16384]
         engine_cuda.align_cigar_cuda = traceback_torch.align_cigar_fused
         try:
-            plain_res = align_pairs(batch.patterns, batch.texts, copts)
+            plain_res = align_pairs([batch.patterns[i] for i in short],
+                                    [batch.texts[i] for i in short], copts)
         finally:
             engine_cuda.align_cigar_cuda = kernel_route
-        require([r.cigar for r in res] == [r.cigar for r in plain_res],
+        require([res[i].cigar for i in short] == [r.cigar for r in plain_res],
                 f"{name}: CIGARs differ from the plain route's")
-        on_card = sum(r.finished_on_accelerator for r in res)
-        shares.append(f"{name} {on_card}/{len(res)} on card ({t_card:.2f}s)")
+        shares.append(f"{name} {on_card}/{len(res)} on card ({t_card:.2f}s; "
+                      f"{len(short)} held against the plain route)")
     require(all(engine_cuda.LAUNCHES[k] > launches0[k]
-                for k in ("wfa_cigar", "wfa_traceback")),
-            "CIGAR golden runs launched no K2/K3")
+                for k in ("wfa_cigar", "wfa_traceback", "wfa_cigar_ring")),
+            "CIGAR golden runs launched no K2, K3 or K4")
     phase("cigar-goldens", t0, "all scores equal, every CIGAR valid with "
           "affine_score == error and equal to the plain route's; "
           + ", ".join(shares))
@@ -386,8 +454,7 @@ def main() -> int:
                              band_width=512, compute_cigar=True, backend="cuda")
     align_pairs(pats[:8], txts[:8], copts)           # warm-up
     torch.cuda.synchronize()
-    for k in engine_cuda.LAUNCHES:
-        engine_cuda.LAUNCHES[k] = 0
+    reset_launches()
     t1 = time.perf_counter()
     res = align_pairs(pats, txts, copts)
     torch.cuda.synchronize()
@@ -429,6 +496,246 @@ def main() -> int:
           f"no corrupt walk, CIGARs equal the reference x{HIFI_REPS}; "
           f"{cells} cells, {rows} choice rows, {walk_steps} walk steps; [{smi}]")
 
+    # ---- 9. K4 (the ring in global memory) against the plain versions ----
+    t0 = time.perf_counter()
+    n_cases = n_lanes = n_same = 0
+    cases = [(pen, w) for pen in pens for w in (128, 512, 1024)]
+    cases.append((Penalties(70, 6, 2), 512))   # a ring of 436 KB per block
+    for pen, w in cases:
+        pairs = EDGE_PAIRS + random_pairs(rng, 96, 10, 1000)
+        args = tensors(pairs, invalid_every=13)
+        cfg = engine_torch.EngineConfig(pen, 200, w, -1, ring_global=True)
+        ccfg, tb = cigar_configs(pen, 200, w, -1, ring_global=True)
+        got = engine_cuda.align_batch_cuda(cfg, *args)
+        tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args)
+        fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args)
+        torch.cuda.synchronize()
+        want = engine_torch.align_batch_device(cfg, *args)
+        plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
+        want_fused = fused_plain(tb, plain, args)
+        what = f"pen={pen} W={w}"
+        err = (got["distance"] - want["distance"]).abs().max().item()
+        require(err == 0 and torch.equal(got["finished"], want["finished"]),
+                f"K4 distances differ: {what}")
+        max_err["wfa_distance_ring"] = max(max_err["wfa_distance_ring"], err)
+        cerr = (tables["distance"] - plain["distance"]).abs().max().item()
+        require(cerr == 0 and torch.equal(tables["finished"], plain["finished"]),
+                f"K4 CIGAR-mode distances differ: {what}")
+        max_err["wfa_cigar_ring"] = max(max_err["wfa_cigar_ring"], cerr)
+        require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables),
+                f"K4 choice table differs on the readable region: {what}")
+        require(torch.equal(fused, want_fused), f"K4 + K3 rows differ: {what}")
+        if engine_cuda.smem_bytes(pen.active_working_set, w, True) <= smem:
+            k1 = engine_cuda.align_batch_cuda(
+                dataclasses.replace(cfg, ring_global=False), *args)
+            k2 = engine_cuda.align_cigar_cuda(
+                dataclasses.replace(ccfg, ring_global=False), tb, *args)
+            require(torch.equal(k1["distance"], got["distance"])
+                    and torch.equal(k1["finished"], got["finished"])
+                    and torch.equal(k2, fused), f"K4 differs from K1/K2: {what}")
+            n_same += 1
+        n_cases += 1
+        n_lanes += len(pairs)
+    phase("k4-vs-plain", t0, f"{n_cases} cases, {n_lanes} lanes: distances, "
+          "flags and fused rows equal, tables equal on the readable region; "
+          f"equal to K1/K2 on the {n_same} cases a shared ring holds")
+
+    # ---- 10. wide10k: seq_10K_n100 at max_error 3000, exact, on K4 ----
+    t0 = time.perf_counter()
+    pen = Penalties(2, 3, 1)
+    w10 = read_seq_file(DATA / "seq_10K_n100.seq")
+    gold10 = [-g for g in json.loads(
+        (DATA / "seq_10K_n100.golden.json").read_text())["results_10K_n100_x2o3e1"]]
+    n10 = len(w10.patterns)
+    dopts = AlignmentOptions(penalties=pen, max_error=3000, backend="cuda")
+    cfg10, full10, _, _ = route_config(w10.patterns, w10.texts, dopts)
+    require(cfg10.ring_global and cfg10.wf_width == 6016 and full10,
+            f"seq_10K_n100: expected K4 at W=6016, got {cfg10}")
+    args10 = tensors(list(zip(w10.patterns, w10.texts)))
+    engine_cuda.align_batch_cuda(cfg10, *args10)       # warm-up
+    torch.cuda.synchronize()
+    k4_ms, out10 = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg10, *args10), 3)
+    require(bool(out10["finished"].all())
+            and out10["distance"].tolist() == gold10,
+            "seq_10K_n100: K4 distances differ from the goldens")
+    k4_plain_ms, plain10 = cuda_ms(
+        lambda: engine_torch.align_batch_device(cfg10, *args10), 1)
+    err = (plain10["distance"] - out10["distance"]).abs().max().item()
+    require(err == 0 and torch.equal(plain10["finished"], out10["finished"]),
+            "seq_10K_n100: the plain version differs from K4")
+    k4_cells, k4_bound = exact_bound(cfg10, out10["distance"].cpu(),
+                                     out10["finished"].cpu(), args10, False)
+    # What the global ring costs: K1 and K4 on the same pairs at the widest
+    # window a shared ring holds, the loop stopped at its certificate.
+    cut = engine_cuda.max_width(pen.active_working_set, smem)
+    cfg_cut = dataclasses.replace(cfg10, wf_width=cut, ring_global=False,
+                                  score_limit=pen.o + pen.e * (cut // 2 + 1))
+    cfg_cut4 = dataclasses.replace(cfg_cut, ring_global=True)
+    k1_cut_ms, k1_cut = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg_cut, *args10), 3)
+    k4_cut_ms, k4_cut = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg_cut4, *args10), 3)
+    require(torch.equal(k1_cut["distance"], k4_cut["distance"])
+            and torch.equal(k1_cut["finished"], k4_cut["finished"]),
+            f"seq_10K_n100 at W={cut}: K4 differs from K1")
+
+    align_pairs(w10.patterns[:4], w10.texts[:4], dopts)   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    res = align_pairs(w10.patterns, w10.texts, dopts)
+    torch.cuda.synchronize()
+    w10_s = time.perf_counter() - t1
+    k4_launches = engine_cuda.LAUNCHES["wfa_distance_ring"]
+    require(k4_launches > 0, "seq_10K_n100: align_pairs launched no K4")
+    require([r.error for r in res] == gold10,
+            "seq_10K_n100: align_pairs distances differ from the goldens")
+    require(all(r.finished_on_accelerator for r in res),
+            "seq_10K_n100: align_pairs left pairs to the CPU")
+
+    copts = dataclasses.replace(dopts, compute_cigar=True)
+    ccfg10, cfull10, _, cap10 = route_config(w10.patterns, w10.texts, copts)
+    require(ccfg10.ring_global and ccfg10.wf_width == 6016 and cfull10,
+            f"seq_10K_n100 CIGAR: expected K4 at W=6016, got {ccfg10}")
+    engine_cuda.cigar_tables_cuda(ccfg10, cap10, *args10)   # warm-up
+    torch.cuda.synchronize()
+    k4c_ms, tables10 = cuda_ms(
+        lambda: engine_cuda.cigar_tables_cuda(ccfg10, cap10, *args10), 3)
+    k4c_plain_ms, cplain10 = cuda_ms(
+        lambda: engine_torch.cigar_tables(ccfg10, cap10, *args10), 1)
+    cerr = (cplain10["distance"] - tables10["distance"]).abs().max().item()
+    require(cerr == 0 and torch.equal(cplain10["finished"], tables10["finished"])
+            and engine_torch.tables_equal(ccfg10, cap10, cplain10, tables10),
+            "seq_10K_n100: the plain CIGAR tables differ from K4's")
+    max_err["wfa_distance_ring"] = max(max_err["wfa_distance_ring"], err)
+    max_err["wfa_cigar_ring"] = max(max_err["wfa_cigar_ring"], cerr)
+    k4c_cells, k4c_bound = exact_bound(ccfg10, tables10["distance"].cpu(),
+                                       tables10["finished"].cpu(), args10, True)
+    del cplain10, plain10
+
+    align_pairs(w10.patterns[:4], w10.texts[:4], copts)   # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    cres = align_pairs(w10.patterns, w10.texts, copts)
+    torch.cuda.synchronize()
+    c10_s = time.perf_counter() - t1
+    k4c_launches = dict(engine_cuda.LAUNCHES)
+    require(k4c_launches["wfa_cigar_ring"] > 0 and k4c_launches["wfa_traceback"] > 0,
+            "seq_10K_n100 CIGAR: align_pairs launched no K4 or no K3")
+    require([r.error for r in cres] == gold10,
+            "seq_10K_n100 CIGAR: distances differ from the goldens")
+    require(all(r.finished_on_accelerator for r in cres),
+            "seq_10K_n100 CIGAR: align_pairs left pairs to the CPU")
+    require(all(check_cigar(r.cigar, p, t) and affine_score(r.cigar, pen) == g
+                for r, p, t, g in zip(cres, w10.patterns, w10.texts, gold10)),
+            "seq_10K_n100 CIGAR: invalid CIGARs")
+    engine_cuda.align_cigar_cuda = traceback_torch.align_cigar_fused
+    try:
+        t1 = time.perf_counter()
+        plain_res = align_pairs(w10.patterns[:16], w10.texts[:16], copts)
+        route_plain_s = time.perf_counter() - t1
+    finally:
+        engine_cuda.align_cigar_cuda = kernel_route
+    require([r.cigar for r in plain_res] == [r.cigar for r in cres[:16]],
+            "seq_10K_n100: CIGARs differ from the plain route's")
+    ring_mb = engine_cuda.ring_bytes(5, 6016) * n10 / 1e6
+    phase("wide10k", t0,
+          f"{n10} pairs, W=6016 (ring {ring_mb:.1f} MB): K4 {k4_ms:.3f} ms, "
+          f"plain {k4_plain_ms:.3f} ms; at W={cut}, cut at its certificate: "
+          f"K1 {k1_cut_ms:.3f} ms, K4 {k4_cut_ms:.3f} ms, equal; "
+          f"align_pairs {w10_s * 1e3:.3f} ms "
+          f"({n10 / w10_s:.1f} aln/s), all on card, distances equal the "
+          f"goldens; CIGAR: K4 tables {k4c_ms:.3f} ms, plain {k4c_plain_ms:.3f} "
+          f"ms; align_pairs {c10_s * 1e3:.3f} ms ({n10 / c10_s:.1f} aln/s), all "
+          "on card, every CIGAR valid and rescoring to its golden, equal to "
+          f"the plain route's on 16 pairs ({route_plain_s:.2f}s); {k4_cells} "
+          f"cells; launches {k4c_launches}; [{smi}]")
+
+    # ---- 11. ring-wide: 16 x 5 kbp at 50% substitution, exact, on K4 ----
+    t0 = time.perf_counter()
+    rw = ring_wide_pairs()
+    rw_p = [p for p, _ in rw]
+    rw_t = [t for _, t in rw]
+    ropts = AlignmentOptions(penalties=pen, max_error=4600, cpu_fallback=False,
+                             backend="cuda")
+    cfg_rw, full_rw, _, _ = route_config(rw_p, rw_t, ropts)
+    require(cfg_rw.ring_global and cfg_rw.wf_width == 9216 and full_rw,
+            f"ring-wide: expected K4 at W=9216, got {cfg_rw}")
+    args_rw = tensors(rw)
+    engine_cuda.align_batch_cuda(cfg_rw, *args_rw)     # warm-up
+    torch.cuda.synchronize()
+    rw_ms, out_rw = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg_rw, *args_rw), 3)
+    rw_plain_ms, plain_rw = cuda_ms(
+        lambda: engine_torch.align_batch_device(cfg_rw, *args_rw), 1)
+    err = (plain_rw["distance"] - out_rw["distance"]).abs().max().item()
+    require(err == 0 and torch.equal(plain_rw["finished"], out_rw["finished"]),
+            "ring-wide: the plain version differs from K4")
+    max_err["wfa_distance_ring"] = max(max_err["wfa_distance_ring"], err)
+    reset_launches()
+    t1 = time.perf_counter()
+    res = align_pairs(rw_p, rw_t, ropts)
+    torch.cuda.synchronize()
+    rw_s = time.perf_counter() - t1
+    require(engine_cuda.LAUNCHES["wfa_distance_ring"] > 0,
+            "ring-wide: align_pairs launched no K4")
+    require(all(r.finished_on_accelerator for r in res),
+            "ring-wide: pairs left unfinished on the card")
+    least = min(r.error for r in res)
+    require(least > 3077, f"ring-wide: least distance {least} is not past 3077")
+    require([r.error for r in res] == out_rw["distance"].tolist(),
+            "ring-wide: align_pairs differs from K4 alone")
+    oracle, _, _ = native.cpu_align_batch(
+        [rw_p[0], rw_p[8]], [rw_t[0], rw_t[8]], pen, np.ones(2, dtype=np.int8),
+        False)
+    require([int(v) for v in oracle] == [res[0].error, res[8].error],
+            "ring-wide: the CPU oracle disagrees on pairs 0 and 8")
+    phase("ring-wide", t0,
+          f"16 pairs, W=9216: K4 {rw_ms:.3f} ms, plain {rw_plain_ms:.3f} ms, "
+          f"equal; align_pairs {rw_s * 1e3:.3f} ms, 16/16 on card, distances "
+          f"{least}..{max(r.error for r in res)}, CPU oracle equal on pairs "
+          f"0 and 8; [{smi}]")
+
+    # ---- 12. ring-bw: K4's ring-row traffic (4 rows in, 3 out per step) ----
+    t0 = time.perf_counter()
+    for shape, steps in (((4, 15, 1024), 64), ((100, 15, 6016), 16)):
+        start = torch.randint(-1000, 1000, shape, dtype=torch.int32, device=dev)
+        ring, plain_ring = start.clone(), start.clone()
+        acc = ring_bw.ring_bw(ring, steps)
+        want_acc = ring_bw.ring_bw_plain(plain_ring, steps)
+        err = (acc.long() - want_acc.long()).abs().max().item()
+        require(torch.equal(ring, plain_ring) and err == 0,
+                f"ring-bw differs from the plain version at {shape}")
+        max_err["ring_bw"] = max(max_err["ring_bw"], err)
+    reset_launches()
+    probes = [ring_bw.measure(100, 6016, 15, device=dev),
+              ring_bw.measure(1056, 16384, 15, device=dev)]
+    bw_launches = ring_bw.LAUNCHES["ring_bw"]
+    require(bw_launches > 0, "ring-bw launched no kernel")
+    # The kernel and the plain version from one seeded random ring at the
+    # measured size and step count.
+    gen = torch.Generator(device=dev).manual_seed(20261016)
+    big = torch.randint(-1000, 1000, (1056, 15, 16384), dtype=torch.int32,
+                        device=dev, generator=gen)
+    plain_big = big.clone()
+    acc = ring_bw.ring_bw(big, 2048)
+    bw_plain_ms, want_acc = cuda_ms(lambda: ring_bw.ring_bw_plain(plain_big, 2048), 1)
+    err = (acc.long() - want_acc.long()).abs().max().item()
+    require(torch.equal(big, plain_big) and err == 0,
+            "ring-bw differs from the plain version at (1056, 15, 16384), "
+            "2048 steps")
+    max_err["ring_bw"] = max(max_err["ring_bw"], err)
+    bw_ms = probes[1]["ms"]["2048"]
+    ring_b = big.numel() * 4
+    # The function's least work: the ring read once and written once, and 7
+    # int adds per column and step (4 into the sum, 3 for the +1).
+    bw_bound = bound_ms(2 * ring_b + 4 * 1056, 7 * 1056 * 16384 * 2048)
+    del big, plain_big
+    phase("ring-bw", t0, "equal to the plain version, at (1056, 15, 16384) "
+          "over 2048 steps too; " + "; ".join(
+        f"B={p['B']} W={p['W']} ({p['ring_bytes'] / 1e6:.1f} MB of ring): "
+        f"{p['per_step_us']:.3f} us a step, {p['achieved_GBps']:.1f} GB/s"
+        for p in probes) + f"; plain (B=1056, 2048 steps) {bw_plain_ms:.3f} ms; "
+        f"[{smi}]")
+
     print(json.dumps({"kernels": [
         {
             "name": "wfa_distance", "route": "cuda",
@@ -455,6 +762,32 @@ def main() -> int:
             "max_abs_err": max_err["wfa_traceback"],
             "ms": k3_ms, "plain_ms": k3_plain_ms,
             "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None,
+        },
+        {
+            "name": "wfa_distance_ring", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/ops/engine_pallas.py:804",
+            "launches": k4_launches,
+            "max_abs_err": max_err["wfa_distance_ring"],
+            "ms": k4_ms, "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None,
+        },
+        {
+            "name": "wfa_cigar_ring", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/ops/engine_pallas.py:804",
+            "launches": k4c_launches["wfa_cigar_ring"],
+            "max_abs_err": max_err["wfa_cigar_ring"],
+            "ms": k4c_ms, "plain_ms": k4c_plain_ms,
+            "bound_ms": k4c_bound[0], "bound_by": k4c_bound[1], "library_ms": None,
+        },
+        {
+            "name": "ring_bw", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/ring_bw.cu",
+            "replaces": "tools/dev_dma_bw.py:35",
+            "launches": bw_launches, "max_abs_err": max_err["ring_bw"],
+            "ms": bw_ms, "plain_ms": bw_plain_ms,
+            "bound_ms": bw_bound[0], "bound_by": bw_bound[1], "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

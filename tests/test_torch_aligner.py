@@ -138,14 +138,34 @@ def test_geometry_widths_and_caps():
 
 
 def test_geometry_exact_truncates_and_certifies():
+    """Exact windows past the shared-memory ring take K4's global ring up to
+    16384 diagonals; only past that are they truncated and certified."""
+    from wfa_tpu_torch.aligner import _CUDA_CALL_BATCH, _distance_call_batch
+
+    # seq_10K_n100 at -e 3000: W=6001 -> 6016 on the global ring, untruncated.
     cfg, full, cert = _geom(16384, 6001)
-    assert cfg.wf_width == 3840 and not full
-    assert cert == 3 + 1 * (3840 // 2 + 1)
-    assert cfg.score_limit == cert  # the loop stops at the certificate
-    # A smaller shared memory truncates narrower windows.
+    assert (cfg.wf_width, cfg.ring_global, full) == (6016, True, True)
+    assert cfg.score_limit == 2 * 3 + 2 * (16384 + 2) + 2
+    assert cert == 3 + 1 * (6016 // 2 + 1)
+    # Past 16384 diagonals: truncated there; the loop stops at the certificate.
+    cfg, full, cert = _geom(16384, 20001)
+    assert (cfg.wf_width, cfg.ring_global, full) == (16384, True, False)
+    assert cert == 3 + 1 * (16384 // 2 + 1)
+    assert cfg.score_limit == cert
+    # A window that fits stays on the shared ring; a smaller shared memory
+    # sends narrower windows to the global ring.
+    cfg, full, _ = _geom(1024, 2053)
+    assert (cfg.wf_width, cfg.ring_global, full) == (2176, False, True)
+    assert engine_cuda.max_width(5, 48 * 1024) == 768
     cfg, full, _ = _geom(1024, 2053, smem=48 * 1024)
-    assert cfg.wf_width == engine_cuda.max_width(5, 48 * 1024) == 768
-    assert not full
+    assert (cfg.wf_width, cfg.ring_global, full) == (2176, True, True)
+    # K4's launches keep the ring in the memory budget: 2**16 pairs at
+    # W=6016 would need 23 GB.
+    opts = AlignmentOptions(penalties=Penalties(2, 3, 1))
+    call_b = _distance_call_batch(opts, 6016, True)
+    assert engine_cuda.ring_bytes(5, 6016) == 360_960
+    assert 100 <= call_b and call_b * 360_960 <= 1 << 30
+    assert _distance_call_batch(opts, 6016, False) == _CUDA_CALL_BATCH
 
 
 def test_geometry_banded_never_truncates():
@@ -171,8 +191,13 @@ def test_geometry_invariants_fuzz():
                 _geom(tier, wf, pen, banded, smem)
             continue
         cfg, full, cert = _geom(tier, wf, pen, banded, smem)
+        w = -(-wf // 128) * 128
         assert cfg.wf_width % 128 == 0
-        assert engine_cuda.smem_bytes(A, cfg.wf_width) <= smem
+        assert engine_cuda.smem_bytes(A, cfg.wf_width,
+                                      ring_global=cfg.ring_global) <= smem
+        assert cfg.ring_global == (not banded
+                                   and w > engine_cuda.max_width(A, smem))
+        assert cfg.wf_width == (min(w, 16384) if cfg.ring_global else w)
         assert cert == pen.o + pen.e * (cfg.wf_width // 2 + 1)
         assert full == (cfg.wf_width >= wf)
         if not full:
@@ -180,10 +205,11 @@ def test_geometry_invariants_fuzz():
 
 
 def test_geometry_cigar_mode():
-    """CIGAR mode: K2's row words narrow the exact cap; the table holds
-    scores below score_cap = unfinished_score + 1, capped at the
+    """CIGAR mode: K2's row words narrow the shared ring's exact cap; the
+    table holds scores below score_cap = unfinished_score + 1, capped at the
     certificate when the window is truncated; the schedule runs to
-    score_cap - 1; the per-launch batch keeps the table in the budget."""
+    score_cap - 1; the per-launch batch keeps the table, and K4's ring, in
+    the budget."""
     from wfa_tpu_torch.aligner import _cigar_call_batch
     from wfa_tpu_torch.ops.engine_torch import num_chunks
     from wfa_tpu_torch.schedule import build_schedule
@@ -202,15 +228,23 @@ def test_geometry_cigar_mode():
     assert cfg.score_limit == cap - 1 and cfg.compute_cigar
     assert num_chunks(cap) == 377
     assert _cigar_call_batch(opts, cap, 512) * num_chunks(cap) * 512 * 4 <= 1 << 30
-    # seq_10K_n100 at -e 3000: truncated at the CIGAR cap and certified.
+    # seq_10K_n100 at -e 3000: past the CIGAR cap, on K4 with the whole
+    # window.
     limit = 2 * 3 + 2 * (16384 + 2) + 2
     plan = _TierPlan(16384, [0], 6001, 8, 1025, limit)
     cfg, full, cert, cap = _tier_geometry_cuda(plan, opts, 3000, -1, H100_SMEM)
-    assert cfg.wf_width == 3584 and not full
-    assert cap == cert + 1 and cfg.score_limit == cert
-    call_b = _cigar_call_batch(opts, cap, 3584)
-    per_lane = num_chunks(cap) * 3584 * 4
+    assert (cfg.wf_width, cfg.ring_global, full) == (6016, True, True)
+    assert cap == build_schedule(pen, 3000, limit).unfinished_score + 1
+    assert cfg.score_limit == cap - 1
+    call_b = _cigar_call_batch(opts, cap, 6016, ring_global=True)
+    per_lane = num_chunks(cap) * 6016 * 4 + engine_cuda.ring_bytes(5, 6016)
     assert 1 <= call_b and call_b * per_lane <= 1 << 30
+    assert _cigar_call_batch(opts, cap, 6016) > call_b
+    # Past 16384 diagonals: truncated and certified, the table capped.
+    plan = _TierPlan(16384, [0], 20001, 8, 1025, limit)
+    cfg, full, cert, cap = _tier_geometry_cuda(plan, opts, 10000, -1, H100_SMEM)
+    assert (cfg.wf_width, cfg.ring_global, full) == (16384, True, False)
+    assert cap == cert + 1 and cfg.score_limit == cert
     # A budget past 2**31 table cells: the kernels index with 64-bit offsets.
     big = dataclasses.replace(opts, memory_budget_bytes=64 << 30)
-    assert _cigar_call_batch(big, cap, 3584) * num_chunks(cap) * 3584 > 2**31
+    assert _cigar_call_batch(big, cap, 16384, True) * num_chunks(cap) * 16384 > 2**31

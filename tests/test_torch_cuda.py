@@ -5,18 +5,23 @@ equal in every lane.  K2 (the same source, CIGAR mode): distances and flags
 equal, and the choice table and ``lo_trace`` equal wherever a backward walk
 can read them (``engine_torch.tables_equal``).  K3
 (wfa_tpu_torch/ops/csrc/wfa_traceback.cu): the fused rows (distance,
-finished, n_ops, 0, op stream) equal.  Tolerance 0 throughout.
+finished, n_ops, 0, op stream) equal.  K4 (wfa_distance.cu with the ring in
+global memory, ``ring_global``): the same outputs as the plain versions and
+as K1/K2 where both run.  The ring-row probe (csrc/ring_bw.cu): the ring and
+the sums equal.  Tolerance 0 throughout.
 
 Needs an NVIDIA GPU and nvcc; without them every test skips.  The file
 imports no jax, so on a machine without it run it with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from wfa_tpu_torch.ops import engine_cuda, engine_torch, traceback_torch
+from wfa_tpu_torch.ops import engine_cuda, engine_torch, ring_bw, traceback_torch
 from wfa_tpu_torch.ops.packing import pack_batch
 from wfa_tpu_torch.schedule import build_schedule
 from wfa_tpu_torch.types import Penalties
@@ -78,11 +83,11 @@ def test_kernel_refuses_what_it_cannot_run(device):
             args[0].long(), *args[1:])
 
 
-def _cigar_configs(pen, max_steps, width, band):
+def _cigar_configs(pen, max_steps, width, band, ring_global=False):
     score_cap = build_schedule(pen, max_steps, None).unfinished_score + 1
     cfg = engine_torch.EngineConfig(
         pen, max_steps, width, band, score_limit=score_cap - 1,
-        compute_cigar=True,
+        compute_cigar=True, ring_global=ring_global,
     )
     tb = traceback_torch.TracebackConfig(
         pen, width, score_cap, banded=band > 0,
@@ -137,3 +142,93 @@ def test_k3_walk_errors_equal_plain_version(device):
     )
     assert torch.equal(got.cpu(), want)
     assert got[:, 2].tolist() == [3, -1, 0, 0]
+
+
+@pytest.mark.parametrize(
+    "pen,width",
+    [(Penalties(2, 3, 1), 128), (Penalties(4, 1, 2), 512),
+     (Penalties(1, 0, 1), 1024), (Penalties(70, 6, 2), 512)],
+)
+def test_k4_equals_plain_version(device, pen, width):
+    """K4 in distance and CIGAR mode; (70,6,2) at W=512 needs 436 KB of ring,
+    more than a block's shared memory."""
+    rng = np.random.default_rng(3 * width + pen.x)
+    pairs = EDGE_PAIRS + random_pairs(rng, 48, 10, 600)
+    args = _tensors(pairs, device, invalid_every=9)
+    cfg = engine_torch.EngineConfig(pen, 120, width, -1, ring_global=True)
+    before = dict(engine_cuda.LAUNCHES)
+    got = engine_cuda.align_batch_cuda(cfg, *args)
+    ccfg, tb = _cigar_configs(pen, 120, width, -1, ring_global=True)
+    tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args)
+    fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args)
+    torch.cuda.synchronize()
+    assert engine_cuda.LAUNCHES["wfa_distance_ring"] == before["wfa_distance_ring"] + 1
+    assert engine_cuda.LAUNCHES["wfa_cigar_ring"] == before["wfa_cigar_ring"] + 2
+    assert engine_cuda.LAUNCHES["wfa_distance"] == before["wfa_distance"]
+    assert engine_cuda.LAUNCHES["wfa_cigar"] == before["wfa_cigar"]
+    want = engine_torch.align_batch_device(cfg, *args)
+    assert torch.equal(got["finished"], want["finished"])
+    assert torch.equal(got["distance"], want["distance"])
+    plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
+    assert torch.equal(tables["finished"], plain["finished"])
+    assert torch.equal(tables["distance"], plain["distance"])
+    assert engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables)
+    assert torch.equal(fused, traceback_torch.align_cigar_fused(ccfg, tb, *args))
+
+
+def test_k4_equals_k1_k2(device):
+    rng = np.random.default_rng(11)
+    pairs = EDGE_PAIRS + random_pairs(rng, 64, 10, 800)
+    args = _tensors(pairs, device, invalid_every=7)
+    pen = Penalties(2, 3, 1)
+    ring = engine_torch.EngineConfig(pen, 150, 512, -1, ring_global=True)
+    shared = dataclasses.replace(ring, ring_global=False)
+    a = engine_cuda.align_batch_cuda(ring, *args)
+    b = engine_cuda.align_batch_cuda(shared, *args)
+    assert torch.equal(a["distance"], b["distance"])
+    assert torch.equal(a["finished"], b["finished"])
+    ccfg, tb = _cigar_configs(pen, 150, 512, -1, ring_global=True)
+    assert torch.equal(
+        engine_cuda.align_cigar_cuda(ccfg, tb, *args),
+        engine_cuda.align_cigar_cuda(
+            dataclasses.replace(ccfg, ring_global=False), tb, *args),
+    )
+
+
+def test_k4_refuses_a_band(device):
+    pen = Penalties(2, 3, 1)
+    with pytest.raises(ValueError, match="exact only"):
+        engine_torch.EngineConfig(pen, 50, 128, 25, ring_global=True)
+    # The C entry point refuses a ring with a band too.
+    args = _tensors(EDGE_PAIRS, device)
+    B, nw = args[0].shape
+    sched, num_steps, unfinished, _ = engine_cuda._schedule_tensor(
+        pen, 50, None, device)
+    dist = torch.empty(B, dtype=torch.int32, device=device)
+    fin = torch.empty(B, dtype=torch.bool, device=device)
+    ring = torch.empty((B, 15, 128), dtype=torch.int32, device=device)
+    lib = engine_cuda.load_library("wfa_distance")
+    rc = lib.wfa_distance_launch(
+        *(t.data_ptr() for t in args[:2]), nw,
+        *(t.data_ptr() for t in args[2:]), sched.data_ptr(), num_steps,
+        unfinished, 5, 128, 25, dist.data_ptr(), fin.data_ptr(),
+        ring.data_ptr(), B, device.index,
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    assert rc != 0
+
+
+@pytest.mark.parametrize("shape,steps", [((3, 15, 64), 37), ((5, 15, 1024), 300)])
+def test_ring_bw_equals_plain_version(device, shape, steps):
+    rng = np.random.default_rng(steps)
+    start = torch.from_numpy(
+        rng.integers(-1000, 1000, size=shape).astype(np.int32))
+    ring = start.to(device)
+    before = ring_bw.LAUNCHES["ring_bw"]
+    acc = ring_bw.ring_bw(ring, steps)
+    torch.cuda.synchronize()
+    assert ring_bw.LAUNCHES["ring_bw"] == before + 1
+    plain = start.clone()
+    want = ring_bw.ring_bw_plain(plain, steps)
+    assert torch.equal(ring.cpu(), plain)
+    assert torch.equal(acc.cpu(), want)

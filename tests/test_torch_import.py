@@ -18,7 +18,12 @@ from wfa_tpu_torch.ops import _build
 from wfa_tpu_torch.utils.io import read_seq_file
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# The port, and the scripts that run it on the card (the tools that write
+# reference files from wfa_tpu import it on purpose).
+PORT_FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_stage_times.py",
+    ROOT / "tools" / "torch_ring_bw.py",
+]
 
 
 def _module_names():

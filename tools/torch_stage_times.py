@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time of ``align_pairs(backend='cuda')`` goes, per stage, on the
-HiFi banded workload (tests/data/test_hifi.seq x8 = 400 pairs of ~14 kbp,
-W=512, band 25, penalties 2,3,1, max_steps 3000), in distance and in CIGAR
-mode.
+"""Where the time of ``align_pairs(backend='cuda')`` goes, per stage, in
+distance and in CIGAR mode, on one of two workloads:
 
-    python3 tools/torch_stage_times.py [--reps 3]
+* ``hifi`` (the default): tests/data/test_hifi.seq x8 = 400 pairs of
+  ~14 kbp, banded, W=512, band 25, penalties 2,3,1, max_steps 3000 (K1;
+  K2 + K3);
+* ``wide10k``: tests/data/seq_10K_n100.seq, 100 pairs of ~10 kbp, exact,
+  penalties 2,3,1, max_error 3000, W=6016 (K4; K4 + K3).
+
+    python3 tools/torch_stage_times.py [--workload hifi|wide10k] [--reps 3]
 
 Needs a CUDA device.  Each stage the aligner calls is wrapped with a host
 clock (with ``torch.cuda.synchronize()`` around the copies and the kernels,
@@ -29,6 +33,7 @@ ROOT = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed repeats per mode")
+    ap.add_argument("--workload", choices=("hifi", "wide10k"), default="hifi")
     args = ap.parse_args()
 
     import torch
@@ -69,19 +74,25 @@ def main() -> int:
     timed(aligner, "_plan_tiers", "plan_tiers", False)
     timed(aligner, "pack_batch", "pack", False)
     timed(aligner, "batch_to_tensors", "h2d", True)
-    timed(engine_cuda, "align_batch_cuda", "kernel_k1", True)
-    timed(engine_cuda, "align_cigar_cuda", "kernels_k2_k3", True)
+    timed(engine_cuda, "align_batch_cuda", "kernel_k1_or_k4", True)
+    timed(engine_cuda, "align_cigar_cuda", "kernels_k2_or_k4_k3", True)
     timed(native, "cigar_from_ops_batch", "decode", False)
     timed(native, "cpu_align_batch", "cpu_fallback", False)
 
-    hifi = read_seq_file(ROOT / "tests" / "data" / "test_hifi.seq")
-    pats, txts = hifi.patterns * 8, hifi.texts * 8
+    data = ROOT / "tests" / "data"
+    if args.workload == "hifi":
+        batch = read_seq_file(data / "test_hifi.seq")
+        pats, txts = batch.patterns * 8, batch.texts * 8
+        banded = dict(band=25, band_width=512)
+    else:
+        batch = read_seq_file(data / "seq_10K_n100.seq")
+        pats, txts = batch.patterns, batch.texts
+        banded = {}
     report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "pairs": len(pats)}
+              "workload": args.workload, "pairs": len(pats)}
     for mode, cigar in (("distance", False), ("cigar", True)):
         opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=3000,
-                                band=25, band_width=512, compute_cigar=cigar,
-                                backend="cuda")
+                                compute_cigar=cigar, backend="cuda", **banded)
         align_pairs(pats[:8], txts[:8], opts)          # warm-up
         runs = []
         for _ in range(args.reps):

@@ -8,10 +8,11 @@ With ``compute_cigar`` each pair also gets its CIGAR.
 
 Backends: ``cuda`` runs the hand-written kernels (``ops/engine_cuda.py``: K1
 for distances; K2 + K3 for CIGARs, with only the walked op streams copied
-back and decoded by ``native.cigar_from_ops_batch``) and never carries on on
-the CPU; ``torch`` runs the plain PyTorch engine on CPU tensors at the XLA
-route's window widths, decoding its per-step choice table with
-``native.traceback_batch``, so its results equal
+back and decoded by ``native.cigar_from_ops_batch``; K4 in place of K1 or K2
+for exact windows wider than a block's shared memory allows) and never
+carries on on the CPU; ``torch`` runs the plain PyTorch engine on CPU
+tensors at the XLA route's window widths, decoding its per-step choice
+table with ``native.traceback_batch``, so its results equal
 ``wfa_tpu.align_pairs(backend='xla')``; ``auto`` picks ``cuda`` when a CUDA
 device is present.
 """
@@ -39,10 +40,13 @@ BACKENDS = ("auto", "torch", "cuda")
 _LANE = 128
 _MIN_TIER = 64
 # Pairs per kernel launch in distance mode: one block per pair, so this only
-# bounds the packed host arrays.
+# bounds the packed host arrays (and, for K4, the memory budget binds).
 _CUDA_CALL_BATCH = 1 << 16
 # Most pairs per K2 launch; the memory budget usually binds first.
 _CUDA_CIGAR_CALL_BATCH = 4096
+# Widest exact window on K4's global ring (wfa_tpu's PALLAS_MAX_WIDTH_RING);
+# past it the window is truncated and certified.
+_RING_MAX_W = 16384
 
 
 def _tier_of(length: int) -> int:
@@ -128,10 +132,13 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
 
     The window is ``plan.wf_width`` rounded up to 128 diagonals, as on the
     Pallas route, so banded scores equal ``wfa_tpu``'s at the same W.  An
-    exact window wider than the shared memory allows is truncated to the cap
-    and certified: leaving a centred +-W/2 window costs at least
+    exact window wider than a shared-memory ring allows runs on K4, its ring
+    in global memory (``ring_global``), up to ``_RING_MAX_W`` diagonals
+    (``wfa_tpu/aligner.py:183-201``); past that it is truncated and
+    certified: leaving a centred +-W/2 window costs at least
     ``o + e*(W/2+1)``, so a distance below that bound is optimal; the loop
-    stops at the bound.  A banded window is never truncated.
+    stops at the bound.  A banded window never takes the global ring and is
+    never truncated.
 
     In CIGAR mode (``wfa_tpu/aligner.py:204-224``) the choice table holds
     scores below ``score_cap = unfinished_score + 1``, capped at
@@ -146,23 +153,20 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
     w = _round_up(plan.wf_width, _LANE)
     score_limit = None
     full_window = True
-    if opts.banded:
-        need = engine_cuda.smem_bytes(A, w, cigar)
-        if need > smem_bytes:
-            raise ValueError(
-                f"banded window W={w} with working set {A} needs {need} "
-                f"bytes of shared memory; a block has {smem_bytes}"
-            )
-    else:
-        cap = engine_cuda.max_width(A, smem_bytes, cigar)
-        if cap < _LANE:
-            raise ValueError(
-                f"working set {A} leaves no {_LANE}-diagonal window in "
-                f"{smem_bytes} bytes of shared memory"
-            )
-        w = min(w, cap)
+    ring_global = False
+    if not opts.banded:
+        ring_global = w > engine_cuda.max_width(A, smem_bytes, cigar)
+        if ring_global:
+            w = min(w, _RING_MAX_W)
         full_window = w >= plan.wf_width
         score_limit = plan.score_limit
+    need = engine_cuda.smem_bytes(A, w, cigar, ring_global)
+    if need > smem_bytes:
+        raise ValueError(
+            f"window W={w} with working set {A} (band={band}, cigar={cigar}, "
+            f"ring_global={ring_global}) needs {need} bytes of shared "
+            f"memory; a block has {smem_bytes}"
+        )
     cert_bound = pen.o + pen.e * (w // 2 + 1)
     score_cap = 0
     if cigar:
@@ -177,22 +181,36 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
         )
     cfg = EngineConfig(
         penalties=pen, max_steps=max_error, wf_width=w, band=band,
-        score_limit=score_limit, compute_cigar=cigar,
+        score_limit=score_limit, compute_cigar=cigar, ring_global=ring_global,
     )
     return cfg, full_window, cert_bound, score_cap
 
 
-def _cigar_call_batch(opts: AlignmentOptions, score_cap: int, w: int) -> int:
-    """Pairs per K2 launch: the memory budget over the bytes of one lane's
-    choice table, at most _CUDA_CIGAR_CALL_BATCH."""
+def _cigar_call_batch(opts: AlignmentOptions, score_cap: int, w: int,
+                      ring_global: bool = False) -> int:
+    """Pairs per K2/K4 launch: the memory budget over the bytes of one lane's
+    choice table and K4 ring, at most _CUDA_CIGAR_CALL_BATCH."""
     per_lane = engine_torch.num_chunks(score_cap) * w * 4
+    if ring_global:
+        per_lane += engine_cuda.ring_bytes(opts.penalties.active_working_set, w)
     return max(1, min(_CUDA_CIGAR_CALL_BATCH,
                       opts.memory_budget_bytes // per_lane))
 
 
+def _distance_call_batch(opts: AlignmentOptions, w: int,
+                         ring_global: bool) -> int:
+    """Pairs per K1/K4 launch: _CUDA_CALL_BATCH, and for K4 at most the
+    memory budget over one lane's ring."""
+    if not ring_global:
+        return _CUDA_CALL_BATCH
+    ring = engine_cuda.ring_bytes(opts.penalties.active_working_set, w)
+    return max(1, min(_CUDA_CALL_BATCH, opts.memory_budget_bytes // ring))
+
+
 def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
                    results, need_cpu) -> None:
-    """One tier on K1 (distance) or K2 + K3 (CIGAR)."""
+    """One tier on K1 (distance) or K2 + K3 (CIGAR), with K4 in place of K1
+    or K2 when the window takes the global ring."""
     device = torch.device("cuda", torch.cuda.current_device())
     cfg, full_window, cert_bound, score_cap = _tier_geometry_cuda(
         plan, opts, max_error, band, engine_cuda.smem_optin(device)
@@ -204,13 +222,15 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
             score_cap=score_cap, banded=cfg.banded,
             lo_pad=engine_torch.lo_pad(score_cap) if cfg.banded else 0,
         )
-        call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width)
+        call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width,
+                                   cfg.ring_global)
     else:
-        call_b = _CUDA_CALL_BATCH
+        call_b = _distance_call_batch(opts, cfg.wf_width, cfg.ring_global)
     LOG.debug(
-        "cuda tier=%d pairs=%d W=%d band=%d cigar=%s score_cap=%d call_b=%d "
-        "full_window=%s cert_bound=%d", plan.tier, len(idxs), cfg.wf_width,
-        band, cigar, score_cap, call_b, full_window, cert_bound,
+        "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s "
+        "score_cap=%d call_b=%d full_window=%s cert_bound=%d", plan.tier,
+        len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, score_cap,
+        call_b, full_window, cert_bound,
     )
     for start in range(0, len(idxs), call_b):
         chunk = idxs[start : start + call_b]

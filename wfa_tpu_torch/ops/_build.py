@@ -30,8 +30,9 @@ _BUILD_DIR = _REPO / "build" / "cuda"
 _NATIVE_DIR = _REPO / "build" / "torch_native"
 # Library name -> its source under csrc/.
 SOURCES = {
-    "wfa_distance": "wfa_distance.cu",     # K1 and K2
+    "wfa_distance": "wfa_distance.cu",     # K1, K2 and K4
     "wfa_traceback": "wfa_traceback.cu",   # K3
+    "ring_bw": "ring_bw.cu",               # K4's ring-row traffic probe
 }
 _HEADERS = ("wfa_common.cuh",)
 NVCC_FLAGS = (
@@ -100,15 +101,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "wfa_distance":
         lib.wfa_distance_launch.restype = i
         lib.wfa_distance_launch.argtypes = [
-            p, p, i, p, p, p, p, i, i, i, i, i, p, p, i, i, p,
+            p, p, i, p, p, p, p, i, i, i, i, i, p, p, p, i, i, p,
         ]
         lib.wfa_cigar_launch.restype = i
         lib.wfa_cigar_launch.argtypes = [
             p, p, i, p, p, p, p, i, i, i, i, i, p, p,
-            p, i, p, i, i, i, p,
+            p, i, p, i, p, i, i, p,
         ]
         lib.wfa_smem_optin.restype = i
         lib.wfa_smem_optin.argtypes = [i, ctypes.POINTER(i)]
+    elif name == "ring_bw":
+        lib.ring_bw_launch.restype = i
+        lib.ring_bw_launch.argtypes = [p, i, i, i, i, p, i, p]
     else:
         lib.wfa_traceback_launch.restype = i
         lib.wfa_traceback_launch.argtypes = [
@@ -127,6 +131,26 @@ def load_library(name: str = "wfa_distance") -> ctypes.CDLL:
                     _bind(lib_name, lib)
                     _libs[lib_name] = lib
         return _libs[name]
+
+
+def check(lib: ctypes.CDLL, rc: int) -> None:
+    """Raise on a nonzero return code of one of the libraries' C calls."""
+    if rc != 0:
+        raise RuntimeError(
+            f"CUDA error {rc}: {lib.wfa_cuda_error_string(rc).decode()}"
+        )
+
+
+def check_inputs(device, **tensors) -> None:
+    """Each (tensor, dtype, shape) must lie on ``device``, contiguous."""
+    for name, (t, dtype, shape) in tensors.items():
+        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def native_library_path() -> Path:

@@ -1,4 +1,4 @@
-// K1 and K2: batched gap-affine WFA for Hopper (sm_90a).
+// K1, K2 and K4: batched gap-affine WFA for Hopper (sm_90a).
 //
 // K1 (kCigar = false) replaces wfa_tpu/ops/engine_pallas.py::_wfa_kernel
 // with compute_cigar=False and ring_hbm=False (exact and adaptive-band
@@ -7,21 +7,36 @@
 // 4-bit backtrace choice (_mk_choice), in the Pallas kernel's layout
 // choice[d >> 3, b, j] at nibble d & 7 (the choice spill and its trailing
 // flush), and in banded mode the window base of each score, lo_trace[b, d]
-// (the lo spill).  Their plain versions are
-// wfa_tpu_torch/ops/engine_torch.py::align_batch_device (K1) and
-// engine_torch.cigar_tables (K2); the kernels agree with them in every lane,
-// including the score reported by lanes that run out of steps, and K2's
-// tables agree wherever a backward walk can read them.
+// (the lo spill).  K4 (kRingGlobal = true, exact only, with or without
+// kCigar) replaces the same kernel with ring_hbm=True: the M/I/D ring lives
+// in global memory, so exact windows can be wider than a block's shared
+// memory allows.  Their plain versions are
+// wfa_tpu_torch/ops/engine_torch.py::align_batch_device (K1, K4 distance)
+// and engine_torch.cigar_tables (K2, K4 CIGAR); the kernels agree with them
+// in every lane, including the score reported by lanes that run out of
+// steps, and the choice tables agree wherever a backward walk can read them.
 //
 // Design: one thread block per alignment, diagonals across threads (thread t
-// owns diagonals t, t + blockDim.x, ...).  The [3A, W] M/I/D ring and the
-// per-slot window base/extent live in dynamic shared memory; the packed
+// owns diagonals t, t + blockDim.x, ...).  The [3A, W] M/I/D ring (K1/K2;
+// K4's is in global memory, below) and the per-slot window base/extent live
+// in dynamic shared memory; the packed
 // sequences are read from global memory (L2).  The control flow comes from
 // the host schedule (wfa_tpu_torch.schedule.build_schedule: score, out slot
 // and the three parent slots, -1 for a missing parent), so the kernel has no
 // existence bitmasks and no working-set limit other than shared memory.
 // Each score costs one block barrier (two on re-centre steps); a block
 // stops as soon as its alignment is done.
+//
+// K4's ring: the block's slab ring[b] of a [B, 3A, W] int32 buffer in global
+// memory takes the place of the shared ring; shared memory keeps the window
+// bases, the argmin scratch and K2's row words.  The block resets its slab to
+// NULL first (score 0 writes one cell, and a later score may read score 0's
+// I/D rows), indexes it with 64-bit offsets (B * 3A * W passes 2^31), and
+// reads it with plain loads after the score's barrier, never through the
+// non-coherent path: the slab is written and read in the same launch.  Each
+// score reads 4 parent rows and writes 3 rows of W ints.  A launch whose
+// slabs fit the 50 MB L2 keeps them there (100 alignments at W=6016 hold
+// 36 MB); larger launches spill to HBM.
 //
 // K2's choice rows: each thread ORs the nibble of each score it computes
 // into the current row word of each diagonal it owns.  The row words live in
@@ -38,8 +53,11 @@
 // diagonal is serial and divergent (its warp loops while the other 31 lanes
 // idle), and every score pays a block-wide barrier; K2 adds one coalesced
 // store of W words per 8 scores, a few percent of the bytes the card could
-// move in that time.  Making them fast (a warp-cooperative extension,
-// several alignments per block) is later work.
+// move in that time.  K4 adds the ring traffic: 28 W bytes per score per
+// alignment, at the rate of L2 or of HBM (tools/torch_ring_bw.py measures
+// it for this access pattern).  Making them fast (a warp-cooperative
+// extension, several alignments per block; for K4 a shared-memory centre
+// with global edges) is later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (wfa_tpu_torch/ops/_build.py).  Plain C entry
@@ -59,10 +77,12 @@ constexpr int kMaxThreads = 512;
 constexpr int kScratchInts = 66;  // argmin partials (2 per warp, <= 32 warps) + 2
 
 // Shared-memory bytes for one block; wfa_tpu_torch.ops.engine_cuda.smem_bytes
-// holds the same formula.  K2 adds one choice row word per diagonal.
-__host__ __device__ inline size_t smem_bytes(int A, int W, bool cigar) {
-  return sizeof(int) * (3 * static_cast<size_t>(A) * W + 2 * A + kScratchInts +
-                        (cigar ? W : 0));
+// holds the same formula.  K2 adds one choice row word per diagonal; K4 holds
+// no ring there.
+__host__ __device__ inline size_t smem_bytes(int A, int W, bool cigar,
+                                             bool ring_global) {
+  const size_t ring = ring_global ? 0 : 3 * static_cast<size_t>(A) * W;
+  return sizeof(int) * (ring + 2 * A + kScratchInts + (cigar ? W : 0));
 }
 
 // Word idx of a packed row; words past the row read as zero (the plain
@@ -137,7 +157,7 @@ __device__ __forceinline__ void argmin_merge(int& v, int& j, int ov, int oj) {
   }
 }
 
-template <bool kBanded, bool kCigar>
+template <bool kBanded, bool kCigar, bool kRingGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
 wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
            int nw, const int* __restrict__ plen_arr,
@@ -147,7 +167,8 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
            int A, int W, int band, int* __restrict__ dist_out,
            unsigned char* __restrict__ fin_out,
            int* __restrict__ choice, int num_chunks,
-           int* __restrict__ lo_trace, int lo_stride) {
+           int* __restrict__ lo_trace, int lo_stride, int* ring) {
+  static_assert(!(kBanded && kRingGlobal), "the global ring is exact only");
   extern __shared__ int smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -170,16 +191,17 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
   const int target_off = tlen;
   const int W2 = W / 2;
 
-  int* M = smem;
+  // K4: this block's slab of the global ring; K1/K2: shared memory.
+  int* M = kRingGlobal ? ring + static_cast<size_t>(b) * 3 * A * W : smem;
   int* I = M + A * W;
   int* D = I + A * W;
-  int* win_lo = D + A * W;
+  int* win_lo = kRingGlobal ? smem : D + A * W;
   int* win_ext = win_lo + A;
   int* scratch = win_ext + A;
   // K2: the current choice row word of each diagonal (owner thread only).
   uint32_t* row_word = reinterpret_cast<uint32_t*>(scratch + kScratchInts);
 
-  for (int i = tid; i < 3 * A * W; i += nthreads) smem[i] = kNull;
+  for (int i = tid; i < 3 * A * W; i += nthreads) M[i] = kNull;
   for (int a = tid; a < A; a += nthreads) {
     win_lo[a] = 0;
     win_ext[a] = 0;
@@ -362,29 +384,30 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
 }
 
 // Sets the kernel's shared-memory limit and launches it on B blocks.
-template <bool kBanded, bool kCigar>
+template <bool kBanded, bool kCigar, bool kRingGlobal>
 int launch(const void* pat, const void* txt, int nw, const void* plen,
            const void* tlen, const void* valid, const void* sched,
            int num_steps, int unfinished_score, int A, int W, int band,
            void* dist, void* fin, void* choice, int num_chunks, void* lo_trace,
-           int lo_stride, int B, int device, void* stream) {
+           int lo_stride, void* ring, int B, int device, void* stream) {
   if (B == 0) return 0;
   if (W <= 0 || W % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(A, W, kCigar);
-  err = cudaFuncSetAttribute(wfa_kernel<kBanded, kCigar>,
+  const size_t smem = smem_bytes(A, W, kCigar, kRingGlobal);
+  err = cudaFuncSetAttribute(wfa_kernel<kBanded, kCigar, kRingGlobal>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = W < kMaxThreads ? W : kMaxThreads;
-  wfa_kernel<kBanded, kCigar><<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  wfa_kernel<kBanded, kCigar, kRingGlobal>
+      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(pat), static_cast<const uint32_t*>(txt), nw,
       static_cast<const int*>(plen), static_cast<const int*>(tlen),
       static_cast<const unsigned char*>(valid), static_cast<const int*>(sched),
       num_steps, unfinished_score, A, W, band, static_cast<int*>(dist),
       static_cast<unsigned char*>(fin), static_cast<int*>(choice), num_chunks,
-      static_cast<int*>(lo_trace), lo_stride);
+      static_cast<int*>(lo_trace), lo_stride, static_cast<int*>(ring));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,26 +415,37 @@ int launch(const void* pat, const void* txt, int nw, const void* plen,
 
 extern "C" {
 
-// K1 on `stream` over B alignments; returns a cudaError_t (0 = ok).
+// K1 (ring == nullptr) or K4 (ring: [B, 3A, W] int32 scratch, exact only)
+// on `stream` over B alignments; returns a cudaError_t (0 = ok).
 // pat/txt: [B, nw] packed u32 rows; plen/tlen: [B] int32; valid: [B] bool;
 // sched: [num_steps, 5] int32 (score, out, mx, moe, ide slots);
 // dist: [B] int32 out; fin: [B] bool out.  W must be a multiple of 32.
 int wfa_distance_launch(const void* pat, const void* txt, int nw,
                         const void* plen, const void* tlen, const void* valid,
                         const void* sched, int num_steps, int unfinished_score,
-                        int A, int W, int band, void* dist, void* fin, int B,
-                        int device, void* stream) {
-  if (band > 0) {
-    return launch<true, false>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
-                               unfinished_score, A, W, band, dist, fin, nullptr,
-                               0, nullptr, 0, B, device, stream);
+                        int A, int W, int band, void* dist, void* fin,
+                        void* ring, int B, int device, void* stream) {
+  if (ring != nullptr) {
+    if (band > 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<false, false, true>(pat, txt, nw, plen, tlen, valid, sched,
+                                      num_steps, unfinished_score, A, W, band,
+                                      dist, fin, nullptr, 0, nullptr, 0, ring,
+                                      B, device, stream);
   }
-  return launch<false, false>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
-                              unfinished_score, A, W, band, dist, fin, nullptr,
-                              0, nullptr, 0, B, device, stream);
+  if (band > 0) {
+    return launch<true, false, false>(pat, txt, nw, plen, tlen, valid, sched,
+                                      num_steps, unfinished_score, A, W, band,
+                                      dist, fin, nullptr, 0, nullptr, 0,
+                                      nullptr, B, device, stream);
+  }
+  return launch<false, false, false>(pat, txt, nw, plen, tlen, valid, sched,
+                                     num_steps, unfinished_score, A, W, band,
+                                     dist, fin, nullptr, 0, nullptr, 0,
+                                     nullptr, B, device, stream);
 }
 
-// K2: K1 plus the choice table and, when banded, the window base by score.
+// K2, or K4 in CIGAR mode when ring is given (exact only): K1 plus the
+// choice table and, when banded, the window base by score.
 // choice: [num_chunks, B, W] int32 out, the 4-bit choice of score d at
 // nibble d & 7 of row d >> 3; lo_trace: [B, lo_stride] int32 out (banded
 // only; lo_stride > the last scheduled score).
@@ -419,16 +453,25 @@ int wfa_cigar_launch(const void* pat, const void* txt, int nw, const void* plen,
                      const void* tlen, const void* valid, const void* sched,
                      int num_steps, int unfinished_score, int A, int W,
                      int band, void* dist, void* fin, void* choice,
-                     int num_chunks, void* lo_trace, int lo_stride, int B,
-                     int device, void* stream) {
-  if (band > 0) {
-    return launch<true, true>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
-                              unfinished_score, A, W, band, dist, fin, choice,
-                              num_chunks, lo_trace, lo_stride, B, device, stream);
+                     int num_chunks, void* lo_trace, int lo_stride, void* ring,
+                     int B, int device, void* stream) {
+  if (ring != nullptr) {
+    if (band > 0) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<false, true, true>(pat, txt, nw, plen, tlen, valid, sched,
+                                     num_steps, unfinished_score, A, W, band,
+                                     dist, fin, choice, num_chunks, nullptr, 0,
+                                     ring, B, device, stream);
   }
-  return launch<false, true>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
-                             unfinished_score, A, W, band, dist, fin, choice,
-                             num_chunks, nullptr, 0, B, device, stream);
+  if (band > 0) {
+    return launch<true, true, false>(pat, txt, nw, plen, tlen, valid, sched,
+                                     num_steps, unfinished_score, A, W, band,
+                                     dist, fin, choice, num_chunks, lo_trace,
+                                     lo_stride, nullptr, B, device, stream);
+  }
+  return launch<false, true, false>(pat, txt, nw, plen, tlen, valid, sched,
+                                    num_steps, unfinished_score, A, W, band,
+                                    dist, fin, choice, num_chunks, nullptr, 0,
+                                    nullptr, B, device, stream);
 }
 
 // Largest dynamic shared memory a block may opt in to on `device`.

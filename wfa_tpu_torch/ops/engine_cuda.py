@@ -1,15 +1,18 @@
-"""Wrappers of the CUDA kernels: K1 and K2 (``csrc/wfa_distance.cu``) and
-K3 (``csrc/wfa_traceback.cu``).
+"""Wrappers of the CUDA kernels: K1, K2 and K4 (``csrc/wfa_distance.cu``)
+and K3 (``csrc/wfa_traceback.cu``).
 
 ``align_batch_cuda`` (K1) takes the tensors of
 ``engine_torch.align_batch_device`` and returns the same outputs.
 ``cigar_tables_cuda`` (K2) returns those of ``engine_torch.cigar_tables``,
 ``traceback_cuda`` (K3) those of ``traceback_torch.traceback_batch_device``,
 and ``align_cigar_cuda`` launches K2 then K3 and returns the fused rows of
-``traceback_torch.align_cigar_fused``.  On CPU tensors each runs its plain
-version; on CUDA tensors it launches its kernel on the current stream or
-raises — it never falls back.  ``LAUNCHES`` counts each kernel's launches,
-so a run can show that its main path went through the kernels.
+``traceback_torch.align_cigar_fused``.  With ``cfg.ring_global`` the first
+two and ``align_cigar_cuda`` launch K4 in place of K1 and K2: the same
+outputs, with each alignment's [3A, W] ring in a global scratch buffer
+rather than in shared memory.  On CPU tensors each runs its plain version;
+on CUDA tensors it launches its kernel on the current stream or raises — it
+never falls back.  ``LAUNCHES`` counts each kernel's launches, so a run can
+show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -20,25 +23,36 @@ import torch
 
 from ..schedule import build_schedule
 from . import engine_torch, traceback_torch
-from ._build import load_library
+from ._build import check, check_inputs, load_library
 from .engine_torch import EngineConfig
 from .traceback_torch import TracebackConfig
 
-LAUNCHES = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0}
+LAUNCHES = {
+    "wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
+    "wfa_distance_ring": 0, "wfa_cigar_ring": 0,
+}
 
 _SCRATCH_INTS = 66  # kScratchInts in csrc/wfa_distance.cu
 
 
-def smem_bytes(active_working_set: int, width: int, cigar: bool = False) -> int:
-    """Shared memory of one block: the [3A, W] int32 ring, the per-slot
-    window base and extent, the argmin scratch and, for K2, one choice row
-    word per diagonal (csrc smem_bytes)."""
+def smem_bytes(active_working_set: int, width: int, cigar: bool = False,
+               ring_global: bool = False) -> int:
+    """Shared memory of one block: the [3A, W] int32 ring (none for K4), the
+    per-slot window base and extent, the argmin scratch and, in CIGAR mode,
+    one choice row word per diagonal (csrc smem_bytes)."""
     A = active_working_set
-    return 4 * (3 * A * width + 2 * A + _SCRATCH_INTS + (width if cigar else 0))
+    ring = 0 if ring_global else 3 * A * width
+    return 4 * (ring + 2 * A + _SCRATCH_INTS + (width if cigar else 0))
+
+
+def ring_bytes(active_working_set: int, width: int) -> int:
+    """K4's global ring per alignment: [3A, W] int32."""
+    return 4 * 3 * active_working_set * width
 
 
 def max_width(active_working_set: int, smem: int, cigar: bool = False) -> int:
-    """Widest multiple-of-128 window whose block fits ``smem`` bytes."""
+    """Widest multiple-of-128 window whose shared-memory ring block fits
+    ``smem`` bytes; past it the window needs K4's global ring."""
     A = active_working_set
     per_diagonal = 4 * (3 * A + (1 if cigar else 0))
     return (smem - 4 * (2 * A + _SCRATCH_INTS)) // per_diagonal // 128 * 128
@@ -49,7 +63,7 @@ def smem_optin(device: torch.device) -> int:
     """Shared memory one block of this device may opt in to."""
     lib = load_library()
     out = ctypes.c_int(0)
-    _check(lib, lib.wfa_smem_optin(device.index, ctypes.byref(out)))
+    check(lib, lib.wfa_smem_optin(device.index, ctypes.byref(out)))
     return out.value
 
 
@@ -66,32 +80,15 @@ def _schedule_tensor(penalties, max_steps, score_limit, device):
     return rows.to(device), sched.num_steps, sched.unfinished_score, last
 
 
-def _check(lib, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(
-            f"CUDA error {rc}: {lib.wfa_cuda_error_string(rc).decode()}"
-        )
-
-
-def _check_inputs(device, **tensors) -> None:
-    """Each (tensor, dtype, shape) must lie on ``device``, contiguous."""
-    for name, (t, dtype, shape) in tensors.items():
-        if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"{name}: expected {dtype} {shape} on {device}, got "
-                f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool):
-    """Validate the inputs of K1/K2 on a CUDA device; returns (B, nw)."""
+    """Validate the inputs of K1/K2/K4 on a CUDA device (a band with
+    ``ring_global`` cannot reach here: ``EngineConfig`` refuses it); returns
+    (B, nw)."""
     device = pat.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     B, nw = pat.shape
-    _check_inputs(
+    check_inputs(
         device,
         pat=(pat, torch.int32, (B, nw)), txt=(txt, torch.int32, (B, nw)),
         plen=(plen, torch.int32, (B,)), tlen=(tlen, torch.int32, (B,)),
@@ -101,14 +98,25 @@ def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool):
     if W <= 0 or W % 32:
         raise ValueError(f"wf_width {W} must be a positive multiple of 32")
     A = cfg.penalties.active_working_set
-    need = smem_bytes(A, W, cigar)
+    need = smem_bytes(A, W, cigar, cfg.ring_global)
     have = smem_optin(device)
     if need > have:
         raise ValueError(
             f"block of {need} bytes of shared memory (A={A}, W={W}, "
-            f"cigar={cigar}) exceeds the {have} bytes a block may use"
+            f"cigar={cigar}, ring_global={cfg.ring_global}) exceeds the "
+            f"{have} bytes a block may use"
         )
     return B, nw
+
+
+def _ring(cfg: EngineConfig, B: int, device) -> torch.Tensor | None:
+    """K4's [B, 3A, W] scratch ring (each block resets its own slab), or
+    None for the shared-memory ring."""
+    if not cfg.ring_global:
+        return None
+    A = cfg.penalties.active_working_set
+    return torch.empty((B, 3 * A, cfg.wf_width), dtype=torch.int32,
+                       device=device)
 
 
 def align_batch_cuda(
@@ -119,7 +127,8 @@ def align_batch_cuda(
     tlen: torch.Tensor,   # [B] int32
     valid: torch.Tensor,  # [B] bool
 ) -> dict[str, torch.Tensor]:
-    """K1: distances and finished flags of one batch."""
+    """K1 (K4 with ``cfg.ring_global``): distances and finished flags of
+    one batch."""
     if pat.device.type == "cpu":
         return engine_torch.align_batch_device(cfg, pat, txt, plen, tlen, valid)
     B, nw = _check_batch(cfg, pat, txt, plen, tlen, valid, cigar=False)
@@ -129,25 +138,28 @@ def align_batch_cuda(
     )
     dist = torch.empty(B, dtype=torch.int32, device=device)
     fin = torch.empty(B, dtype=torch.bool, device=device)
+    ring = _ring(cfg, B, device)
     lib = load_library("wfa_distance")
     stream = torch.cuda.current_stream(device).cuda_stream
-    _check(lib, lib.wfa_distance_launch(
+    check(lib, lib.wfa_distance_launch(
         pat.data_ptr(), txt.data_ptr(), nw,
         plen.data_ptr(), tlen.data_ptr(), valid.data_ptr(),
         sched.data_ptr(), num_steps, unfinished,
         cfg.penalties.active_working_set, cfg.wf_width,
         cfg.band if cfg.banded else -1,
-        dist.data_ptr(), fin.data_ptr(), B, device.index, stream,
+        dist.data_ptr(), fin.data_ptr(),
+        None if ring is None else ring.data_ptr(), B, device.index, stream,
     ))
-    LAUNCHES["wfa_distance"] += 1
+    LAUNCHES["wfa_distance_ring" if cfg.ring_global else "wfa_distance"] += 1
     return {"distance": dist, "finished": fin}
 
 
 def cigar_tables_cuda(
     cfg: EngineConfig, score_cap: int, pat, txt, plen, tlen, valid,
 ) -> dict[str, torch.Tensor]:
-    """K2: ``distance``, ``finished``, ``choice_words`` [score_cap//8 + 2,
-    B, W] int32 and, banded, ``lo_trace`` [B, lo_pad(score_cap)] int32.
+    """K2 (K4 with ``cfg.ring_global``): ``distance``, ``finished``,
+    ``choice_words`` [score_cap//8 + 2, B, W] int32 and, banded,
+    ``lo_trace`` [B, lo_pad(score_cap)] int32.
 
     The table and ``lo_trace`` come from ``torch.empty``, not
     ``torch.zeros``: K2 stores every row that holds a scheduled score up to
@@ -181,17 +193,19 @@ def cigar_tables_cuda(
         res["lo_trace"] = torch.empty((B, lo_stride), dtype=torch.int32,
                                       device=device)
         lo_ptr = res["lo_trace"].data_ptr()
+    ring = _ring(cfg, B, device)
     lib = load_library("wfa_distance")
     stream = torch.cuda.current_stream(device).cuda_stream
-    _check(lib, lib.wfa_cigar_launch(
+    check(lib, lib.wfa_cigar_launch(
         pat.data_ptr(), txt.data_ptr(), nw,
         plen.data_ptr(), tlen.data_ptr(), valid.data_ptr(),
         sched.data_ptr(), num_steps, unfinished,
         cfg.penalties.active_working_set, W, cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(), words.data_ptr(), C,
-        lo_ptr, lo_stride, B, device.index, stream,
+        lo_ptr, lo_stride, None if ring is None else ring.data_ptr(),
+        B, device.index, stream,
     ))
-    LAUNCHES["wfa_cigar"] += 1
+    LAUNCHES["wfa_cigar_ring" if cfg.ring_global else "wfa_cigar"] += 1
     return res
 
 
@@ -226,13 +240,13 @@ def traceback_cuda(
     )
     if tb_cfg.banded:
         tensors["lo_trace"] = (lo_trace, torch.int32, (B, tb_cfg.lo_pad))
-    _check_inputs(device, **tensors)
+    check_inputs(device, **tensors)
     opw = tb_cfg.opw
     out = torch.empty((B, 4 + opw), dtype=torch.int32, device=device)
     pen = tb_cfg.penalties
     lib = load_library("wfa_traceback")
     stream = torch.cuda.current_stream(device).cuda_stream
-    _check(lib, lib.wfa_traceback_launch(
+    check(lib, lib.wfa_traceback_launch(
         choice_words.data_ptr(), C,
         lo_trace.data_ptr() if tb_cfg.banded else None,
         tb_cfg.lo_pad if tb_cfg.banded else 0,
@@ -246,9 +260,9 @@ def traceback_cuda(
 def align_cigar_cuda(
     cfg: EngineConfig, tb_cfg: TracebackConfig, pat, txt, plen, tlen, valid,
 ) -> torch.Tensor:
-    """K2 then K3 on the current stream: [B, 4 + opw] int32 rows (distance,
-    finished, n_ops, 0, ops...), the output of
-    ``traceback_torch.align_cigar_fused``."""
+    """K2 (K4 with ``cfg.ring_global``) then K3 on the current stream:
+    [B, 4 + opw] int32 rows (distance, finished, n_ops, 0, ops...), the
+    output of ``traceback_torch.align_cigar_fused``."""
     if pat.device.type == "cpu":
         return traceback_torch.align_cigar_fused(
             cfg, tb_cfg, pat, txt, plen, tlen, valid

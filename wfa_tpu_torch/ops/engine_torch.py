@@ -11,8 +11,11 @@ It is the CPU engine of the port and the plain version of the hand-written
 CUDA kernels of ``ops/csrc/wfa_distance.cu``: K1 must equal
 ``align_batch_device`` in every lane, and K2 must equal ``cigar_tables`` (this
 engine plus ``choices_to_words``, the relayout into the Pallas kernel's
-by-score table) wherever a backward walk can read.  Unlike the TPU kernel it
-has no limit on the working set.
+by-score table) wherever a backward walk can read.  K4, the same kernels
+with the wavefront ring in global memory (``EngineConfig.ring_global``),
+must equal the same two functions at the same config: this engine has no
+shared memory, so it ignores the flag.  Unlike the TPU kernel it has no
+limit on the working set.
 
 Torch specifics:
 
@@ -64,6 +67,15 @@ class EngineConfig:
     score_limit: int | None = None
     # Also return the per-step backtrace choices and window bases.
     compute_cigar: bool = False
+    # Exact only: on the CUDA kernels, keep the M/I/D ring in global memory
+    # (K4) rather than in shared memory, for windows wider than a block's
+    # shared memory allows (PallasConfig.ring_hbm).  The plain engine ignores
+    # it.
+    ring_global: bool = False
+
+    def __post_init__(self):
+        if self.ring_global and self.banded:
+            raise ValueError("ring_global is exact only; it takes no band")
 
     @property
     def banded(self) -> bool:
@@ -75,7 +87,8 @@ def config_from_tpu(cfg) -> EngineConfig:
     ``PallasConfig`` (duck-typed, so jax is never imported).
 
     A Pallas ``score_cap`` stops the loop at ``d < score_cap``, which is the
-    schedule's ``score_limit = score_cap - 1``; 0 means no cap."""
+    schedule's ``score_limit = score_cap - 1``; 0 means no cap.  Its
+    ``ring_hbm`` becomes ``ring_global``."""
     if hasattr(cfg, "score_limit"):
         limit = cfg.score_limit
     else:
@@ -88,6 +101,7 @@ def config_from_tpu(cfg) -> EngineConfig:
         band=cfg.band,
         score_limit=limit,
         compute_cigar=cfg.compute_cigar,
+        ring_global=getattr(cfg, "ring_hbm", False),
     )
 
 
@@ -221,7 +235,9 @@ def align_batch_device(
     tlen: torch.Tensor,   # [B] int32
     valid: torch.Tensor,  # [B] bool — False routes to the CPU fallback
 ) -> dict[str, torch.Tensor]:
-    """Align one batch of B pairs on ``pat.device``; returns ``distance``
+    """Align one batch of B pairs on ``pat.device``; the plain version of K1
+    and of K4 in distance mode (``cfg.ring_global`` changes nothing here).
+    Returns ``distance``
     (int32 [B]) and ``finished`` (bool [B]), and in CIGAR mode ``choices``
     (uint8 [S, B, W], the 4-bit choice of step s at each window lane),
     ``lo_trace`` (int32 [S, B], the window base of step s) and
@@ -484,7 +500,8 @@ def choices_to_words(
 def cigar_tables(
     cfg: EngineConfig, score_cap: int, pat, txt, plen, tlen, valid,
 ) -> dict[str, torch.Tensor]:
-    """The plain version of K2: ``distance``, ``finished``, ``choice_words``
+    """The plain version of K2, and of K4 in CIGAR mode (``cfg.ring_global``
+    changes nothing here): ``distance``, ``finished``, ``choice_words``
     [score_cap//8 + 2, B, W] and, banded, ``lo_trace`` [B, lo_pad] — the
     outputs of ``engine_pallas.align_batch_pallas`` with ``compute_cigar``
     and of ``engine_cuda.cigar_tables_cuda``.  ``cfg`` runs the schedule up

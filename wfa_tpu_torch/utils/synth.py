@@ -3,7 +3,9 @@
 ``random_pairs`` draws DNA pairs with lengths in a range and a per-pair error
 rate, some containing ``N`` and some empty; ``EDGE_PAIRS`` are fixed pairs
 that reach the extension's boundary cases (sequence ends inside and exactly
-at a 16-base word, the tail mask, empty and invalid sequences).
+at a 16-base word, the tail mask, empty and invalid sequences);
+``ring_wide_pairs`` is the wide exact workload of
+``bench.py::_bench_ring_wide_exact``.
 """
 from __future__ import annotations
 
@@ -72,4 +74,22 @@ def random_pairs(
             else:
                 txt = []
         pairs.append((bytes(pat), bytes(txt)))
+    return pairs
+
+
+def ring_wide_pairs(seed: int = 7, n: int = 16,
+                    length: int = 5000) -> list[tuple[bytes, bytes]]:
+    """``n`` pairs of ``length`` bases, the text the pattern with half its
+    positions resampled (about 37.5% mismatches): exact distances near
+    0.75 * length at penalties (2,3,1), past the certificate of any window
+    narrower than 2 * 0.75 * length diagonals.  The generator of
+    ``bench.py::_bench_ring_wide_exact``, draw for draw."""
+    rng = np.random.default_rng(seed)
+    pairs = []
+    for _ in range(n):
+        p = rng.choice(_BASES, size=length)
+        t = p.copy()
+        k = int(length * 0.5)
+        t[rng.choice(length, size=k, replace=False)] = rng.choice(_BASES, size=k)
+        pairs.append((bytes(p), bytes(t)))
     return pairs
