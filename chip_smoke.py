@@ -13,8 +13,12 @@ kernels alone, their plain versions and align_pairs, with times: the HiFi
 banded workload (400 pairs of ~14 kbp, W=512, band 25, penalties 2,3,1,
 max_steps 3000) in distance and CIGAR mode on K1 and K2 + K3; the 100 x
 10 kbp golden set at max_error 3000 (exact, W=6016) in distance and CIGAR
-mode on K4; the 16 x 5 kbp ring-wide set (exact, W=9216) on K4; and the
-ring-row probe at two sizes.  Every phase prints one line with its seconds;
+mode on K4; the 16 x 5 kbp ring-wide set (exact, W=9216) on K4; the
+ring-row probe at two sizes; the speed-of-light calibration kernels and the
+wide-gather probe (sol_calibrate.cu, gather_probe.cu), held against their
+plain versions and timed at the TPU script's counts for one tile and for
+the card full; and the CLI's --profile trace, which must name K1.  Every
+phase prints one line with its seconds;
 any failure ends the run with a nonzero exit code.  The line before the last lists every kernel with its
 launches on the main paths, error against its plain version, times and
 bound; the last line is
@@ -24,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -32,13 +37,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 HIFI_REPS = 8
+# Iterations at which the calibration kernels and their plain versions are
+# timed for the kernels line (the plain versions pay a launch per op).
+CAL_ITERS = 256
 
 # H100 SXM peaks (NVIDIA data sheet, as tabled in the repository's
 # measurement notes): 3.35 TB/s of HBM; 67 TFLOP/s float32 outside the
-# tensor cores is 128 FP32 lanes x 2 (an FMA counts 2) per SM and clock,
-# and an SM has 64 INT32 lanes, so 67/4 T int32 ops/s.
+# tensor cores is 128 FP32 lanes x 2 (an FMA counts 2) per SM and clock, so
+# an SM issues at most 128 lane-instructions a clock (4 schedulers x one
+# 32-lane warp instruction): 67/2 T/s.  That is the int32 peak too: the 64
+# INT32 lanes alone give 67/4 T/s, but IMAD issues to the FMA pipe beside
+# them, and the calibration chain (8 source ops in 6 instructions, 2 of them
+# IMAD) ran at 32.8 T source ops/s, twice 67/4 (phase calibrate).  The
+# operation counts below are source ops, each counted as one instruction.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
+INT32_OPS_PER_S = 67e12 / 2
 # Integer ops one cell (score x window diagonal) needs at least: I 8 (two
 # +1, two packs of 2, max, >> 2), D 6, M 10 (+1, three packs, two max, >> 2),
 # and one 16-base comparison 8 (two de-phased loads 4, xor, clz, >> 1, add).
@@ -77,7 +90,8 @@ def main() -> int:
 
     from wfa_tpu_torch import AlignmentOptions, Penalties, aligner, align_pairs, native
     from wfa_tpu_torch.ops import (
-        _build, engine_cuda, engine_torch, ring_bw, traceback_torch,
+        _build, engine_cuda, engine_torch, gather_probe, ring_bw, sol_calibrate,
+        traceback_torch,
     )
     from wfa_tpu_torch.ops.packing import pack_batch
     from wfa_tpu_torch.schedule import build_schedule
@@ -153,7 +167,8 @@ def main() -> int:
           "fallback thread(s)")
 
     def reset_launches():
-        for counts in (engine_cuda.LAUNCHES, ring_bw.LAUNCHES):
+        for counts in (engine_cuda.LAUNCHES, ring_bw.LAUNCHES,
+                       sol_calibrate.LAUNCHES, gather_probe.LAUNCHES):
             for k in counts:
                 counts[k] = 0
 
@@ -207,7 +222,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rng = np.random.default_rng(20261016)
     max_err = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
-               "wfa_distance_ring": 0, "wfa_cigar_ring": 0, "ring_bw": 0}
+               "wfa_distance_ring": 0, "wfa_cigar_ring": 0, "ring_bw": 0,
+               "vpu_ops": 0, "gather_chain": 0, "scalar_sync": 0, "k_wide": 0}
     n_cases = n_lanes = 0
     prep_s = k1_s = plain_s = 0.0
     pens = (Penalties(2, 3, 1), Penalties(1, 0, 1), Penalties(4, 1, 2))
@@ -736,6 +752,149 @@ def main() -> int:
         for p in probes) + f"; plain (B=1056, 2048 steps) {bw_plain_ms:.3f} ms; "
         f"[{smi}]")
 
+    # ---- 13. calibrate: the speed-of-light kernels and the wide gather ----
+    t0 = time.perf_counter()
+    sol = sol_calibrate
+    rng = np.random.default_rng(20261016)
+
+    def tiles(G, lo=-(2**31), hi=2**31):
+        return torch.from_numpy(rng.integers(lo, hi, (G, 8, 128), dtype=np.int32)).to(dev)
+
+    def err_of(got, want):
+        return (got.long() - want.long()).abs().max().item()
+
+    n_checks = 0
+    for G in (1, 3):
+        for iters in (0, 1, 5, 64):
+            x, idx = tiles(G), tiles(G, 0, 128)
+            x[0] = -tiles(1, 0, 1000)[0]            # a tile whose max is <= 0
+            for name, got, want in (
+                ("vpu_ops", sol.vpu_ops(x, iters), sol.vpu_ops_plain(x, iters)),
+                ("gather_chain", sol.gather_chain(x, idx, iters),
+                 sol.gather_chain_plain(x, idx, iters)),
+                ("scalar_sync", sol.scalar_sync(x, iters),
+                 sol.scalar_sync_plain(x, iters)),
+                ("scalar_sync", sol.scalar_sync(x, iters, threads=512),
+                 sol.scalar_sync_plain(x, iters)),
+            ):
+                err = err_of(got, want)
+                require(err == 0, f"{name} differs from its plain version at "
+                        f"G={G}, iters={iters}")
+                max_err[name] = max(max_err[name], err)
+                n_checks += 1
+    for R, W in ((8, 2048), (8192, 2048)):
+        tab, idx = gather_probe.random_inputs(R, W, dev, seed=R)
+        err = err_of(gather_probe.k_wide(tab, idx), gather_probe.k_wide_plain(tab, idx))
+        require(err == 0, f"k_wide differs from torch.gather at [{R}, {W}]")
+        max_err["k_wide"] = max(max_err["k_wide"], err)
+        n_checks += 1
+
+    # The rates, from the difference of the TPU script's two counts.
+    reset_launches()
+    full = {k: sol.resident_tiles(k, dev) for k in ("vpu_ops", "gather_chain")}
+    full512 = sol.resident_tiles("scalar_sync", dev, 512)
+    full1024 = sol.resident_tiles("scalar_sync", dev, 1024)
+    rates = {
+        "vpu": [sol.bench_vpu_ops(dev, g) for g in (1, full["vpu_ops"])],
+        "gather": [sol.bench_gather(dev, g) for g in (1, full["gather_chain"])],
+        "sync1024": [sol.bench_scalar_sync(dev, g) for g in (1, full1024)],
+        "sync512": [sol.bench_scalar_sync(dev, g, threads=512) for g in (1, full512)],
+    }
+    probes = [gather_probe.measure(8, 2048, device=dev),
+              gather_probe.measure(8192, 2048, device=dev)]
+    require(all(p["equal"] for p in probes), "k_wide differs in its measuring run")
+    cal_launches = {**sol.LAUNCHES, **gather_probe.LAUNCHES}
+    require(all(v > 0 for v in cal_launches.values()),
+            f"the calibration run launched no kernel: {cal_launches}")
+    sass = sol.sass_per_rep()
+
+    # The kernels line's times: kernel and plain version on the same inputs,
+    # the card full, at CAL_ITERS iterations (the plain versions pay one
+    # launch per op, so not at the TPU counts).
+    cal = {}
+    for name, G in (("vpu_ops", full["vpu_ops"]), ("gather_chain", full["gather_chain"]),
+                    ("scalar_sync", full1024)):
+        x, idx = tiles(G), tiles(G, 0, 128)
+        kern = {"vpu_ops": lambda: sol.vpu_ops(x, CAL_ITERS),
+                "gather_chain": lambda: sol.gather_chain(x, idx, CAL_ITERS),
+                "scalar_sync": lambda: sol.scalar_sync(x, CAL_ITERS)}[name]
+        plain = {"vpu_ops": lambda: sol.vpu_ops_plain(x, CAL_ITERS),
+                 "gather_chain": lambda: sol.gather_chain_plain(x, idx, CAL_ITERS),
+                 "scalar_sync": lambda: sol.scalar_sync_plain(x, CAL_ITERS)}[name]
+        kern()                                             # warm-up
+        ms, got = cuda_ms(kern, 5)
+        plain_ms, want = cuda_ms(plain, 1)
+        err = err_of(got, want)
+        require(err == 0, f"{name} differs from its plain version at G={G}, "
+                f"iters={CAL_ITERS}")
+        max_err[name] = max(max_err[name], err)
+        # Source ops per value and iteration: 8 x 16; the gather's and, xor
+        # and shared load x 16; the sync's max and add.
+        ops = {"vpu_ops": 8 * 16, "gather_chain": 3 * 16, "scalar_sync": 2}[name]
+        nbytes = (3 if name == "gather_chain" else 2) * x.numel() * 4
+        cal[name] = (G, ms, plain_ms, bound_ms(nbytes, ops * x.numel() * CAL_ITERS))
+    tab, idx = gather_probe.random_inputs(8192, 2048, dev)
+    gather_probe.k_wide(tab, idx)                          # warm-up
+    kw_ms, got = cuda_ms(lambda: gather_probe.k_wide(tab, idx), 20)
+    kw_plain_ms, want = cuda_ms(lambda: gather_probe.k_wide_plain(tab, idx), 20)
+    idx64 = idx.long()
+    kw_lib_ms, _ = cuda_ms(lambda: torch.gather(tab, 1, idx64), 20)
+    require(err_of(got, want) == 0, "k_wide differs from torch.gather at [8192, 2048]")
+    kw_bound = bound_ms(tab.numel() * 4 + 2 * idx.numel() * 4, idx.numel())
+    del tab, idx, idx64, got, want
+
+    def rate_line(tag, runs, unit):
+        return f"{tag}: " + ", ".join(
+            f"G={r['tiles']} {r['ns']:.3f} ns/{unit} ({r['ms'][0]:.3f}/"
+            f"{r['ms'][1]:.3f} ms at {r['counts'][0]}/{r['counts'][1]})"
+            for r in runs)
+
+    # K1's floor on HiFi from its barriers alone: one block barrier a
+    # scheduled score (half a 512-thread max-and-branch, which pays two),
+    # and every HiFi block resident at once, so the longest pair's count.
+    hifi_scores = build_schedule(Penalties(2, 3, 1), 3000, None).score
+    longest = int(max((hifi_scores <= d).sum() for d in ref["distance"]))
+    floor_us = [longest * r["ns"] / 2e3 for r in rates["sync512"]]
+    vfull = rates["vpu"][1]
+    phase("calibrate", t0,
+          f"{n_checks} checks equal; "
+          + rate_line("dependent int32 op", rates["vpu"], "op")
+          + f", the card full {vfull['int32_ops_per_s'] / 1e12:.3f} T source "
+          f"ops/s ({vfull['int32_ops_per_s'] / INT32_OPS_PER_S:.2f}x "
+          f"INT32_OPS_PER_S); SASS {sass['loop_instructions']} instructions "
+          f"a loop of 16 reps {sass['opcodes']}; "
+          + rate_line("gather step", rates["gather"], "gather") + "; "
+          + rate_line("block max + branch, 1024 threads", rates["sync1024"], "sync")
+          + "; " + rate_line("512 threads", rates["sync512"], "sync")
+          + "; k_wide " + ", ".join(
+              f"[{p['BT']}, {p['W']}] {p['ms'] * 1e3:.3f} us (torch.gather "
+              f"{p['library_ms'] * 1e3:.3f} us, {p['achieved_GBps']:.1f} GB/s)"
+              for p in probes)
+          + f"; K1's barrier floor on HiFi: {longest} scheduled scores x "
+          f"{floor_us[0] * 1e3 / longest:.3f}-{floor_us[1] * 1e3 / longest:.3f} ns "
+          f"= {floor_us[0]:.3f}-{floor_us[1]:.3f} us, {100e-3 * floor_us[0] / k1_ms:.1f}"
+          f"-{100e-3 * floor_us[1] / k1_ms:.1f}% of K1's {k1_ms:.3f} ms"
+          f"; launches {cal_launches}; [{smi}]")
+
+    # ---- 14. profile: the CLI's --profile trace names K1 ----
+    t0 = time.perf_counter()
+    trace_dir = ROOT / "build" / "profile"
+    proc = subprocess.run(
+        [sys.executable, "-m", "wfa_tpu_torch.cli", "-i",
+         str(DATA / "wfa.utest.seq"), "-n", "50", "-g", "1,2,1", "-e", "100",
+         "--backend", "cuda", "--profile", str(trace_dir)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    require(proc.returncode == 0, f"--profile run failed:\n{proc.stderr[-2000:]}")
+    events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels
+          if re.search(r"wfa_kernel<(true|false), false, false>", e["name"])]
+    require(len(k1) > 0, f"the --profile trace names no K1 kernel "
+            f"({len(kernels)} kernel events)")
+    phase("profile", t0, f"trace.json: {len(events)} events, {len(kernels)} "
+          f"kernel events, {len(k1)} of K1 ({sum(e['dur'] for e in k1):.3f} us)")
+
     print(json.dumps({"kernels": [
         {
             "name": "wfa_distance", "route": "cuda",
@@ -788,6 +947,24 @@ def main() -> int:
             "launches": bw_launches, "max_abs_err": max_err["ring_bw"],
             "ms": bw_ms, "plain_ms": bw_plain_ms,
             "bound_ms": bw_bound[0], "bound_by": bw_bound[1], "library_ms": None,
+        },
+        *({
+            "name": name, "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/sol_calibrate.cu",
+            "replaces": f"benchmarks/sol_calibrate.py:{line}",
+            "launches": cal_launches[name], "max_abs_err": max_err[name],
+            "ms": cal[name][1], "plain_ms": cal[name][2],
+            "bound_ms": cal[name][3][0], "bound_by": cal[name][3][1],
+            "library_ms": None,
+        } for name, line in (("vpu_ops", 56), ("gather_chain", 84),
+                             ("scalar_sync", 115))),
+        {
+            "name": "k_wide", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/gather_probe.cu",
+            "replaces": "tools/dev_gather_probe.py:22",
+            "launches": cal_launches["k_wide"], "max_abs_err": max_err["k_wide"],
+            "ms": kw_ms, "plain_ms": kw_plain_ms,
+            "bound_ms": kw_bound[0], "bound_by": kw_bound[1], "library_ms": kw_lib_ms,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

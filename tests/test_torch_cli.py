@@ -5,6 +5,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from wfa_tpu.cli import main as tpu_main
 from wfa_tpu_torch.cli import main
@@ -69,13 +70,15 @@ def test_cli_output_verbose(tmp_path):
         assert set(cols[2]) <= set("ACGTNacgtn")
 
 
-def test_cli_errors_and_unsupported_flags():
+def test_cli_errors_and_unsupported_flags(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     seq = str(DATA / "wfa.utest.seq")
     assert main(["-g", "1,2,1"]) == 1                        # no input file
     assert main(["-i", seq, "-e", "0"]) == 1                 # bad max error
     assert main(["-i", seq, "-B", "-3"]) == 1                # bad band
     assert main(["-i", seq, "-n", "1", "-g", "1,2"]) == 1    # bad penalties
-    assert main(["-i", seq, "-n", "1", "--profile", "t"]) == 1   # not yet
+    assert main(["-i", seq, "-n", "1"]) == 1                 # auto: no card
+    assert main(["-i", seq, "-n", "1", "--backend", "cuda"]) == 1
 
 
 # The -x cases of tests/test_cli.py:53-110, run against both CLIs; the

@@ -8,7 +8,9 @@ can read them (``engine_torch.tables_equal``).  K3
 finished, n_ops, 0, op stream) equal.  K4 (wfa_distance.cu with the ring in
 global memory, ``ring_global``): the same outputs as the plain versions and
 as K1/K2 where both run.  The ring-row probe (csrc/ring_bw.cu): the ring and
-the sums equal.  Tolerance 0 throughout.
+the sums equal.  The calibration kernels (csrc/sol_calibrate.cu) and the
+wide-gather probe (csrc/gather_probe.cu): outputs equal.  Tolerance 0
+throughout.
 
 Needs an NVIDIA GPU and nvcc; without them every test skips.  The file
 imports no jax, so on a machine without it run it with
@@ -21,7 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from wfa_tpu_torch.ops import engine_cuda, engine_torch, ring_bw, traceback_torch
+from wfa_tpu_torch.ops import (
+    engine_cuda, engine_torch, gather_probe, ring_bw, sol_calibrate, traceback_torch,
+)
 from wfa_tpu_torch.ops.packing import pack_batch
 from wfa_tpu_torch.schedule import build_schedule
 from wfa_tpu_torch.types import Penalties
@@ -232,3 +236,75 @@ def test_ring_bw_equals_plain_version(device, shape, steps):
     want = ring_bw.ring_bw_plain(plain, steps)
     assert torch.equal(ring.cpu(), plain)
     assert torch.equal(acc.cpu(), want)
+
+
+def _tiles(rng, G, lo=-(2**31), hi=2**31):
+    return torch.from_numpy(rng.integers(lo, hi, (G, 8, 128), dtype=np.int32))
+
+
+@pytest.mark.parametrize("G,iters", [(1, 0), (1, 5), (3, 64)])
+def test_calibration_kernels_equal_plain_versions(device, G, iters):
+    rng = np.random.default_rng(G * 100 + iters)
+    x = _tiles(rng, G)
+    x[0, :4] = -7 - torch.arange(128)        # a tile with rows <= 0 ...
+    nonpos = _tiles(rng, G, -1000, 1)         # ... and whole tiles <= 0
+    idx = _tiles(rng, G, 0, 128)
+    before = dict(sol_calibrate.LAUNCHES)
+    got = {
+        "vpu_ops": sol_calibrate.vpu_ops(x.to(device), iters),
+        "gather_chain": sol_calibrate.gather_chain(x.to(device), idx.to(device), iters),
+        "scalar_sync": sol_calibrate.scalar_sync(x.to(device), iters),
+    }
+    sync512 = sol_calibrate.scalar_sync(nonpos.to(device), iters, threads=512)
+    sync1024 = sol_calibrate.scalar_sync(nonpos.to(device), iters, threads=1024)
+    torch.cuda.synchronize()
+    assert sol_calibrate.LAUNCHES == {
+        k: v + (3 if k == "scalar_sync" else 1) for k, v in before.items()}
+    assert torch.equal(got["vpu_ops"].cpu(), sol_calibrate.vpu_ops_plain(x, iters))
+    assert torch.equal(got["gather_chain"].cpu(),
+                       sol_calibrate.gather_chain_plain(x, idx, iters))
+    assert torch.equal(got["scalar_sync"].cpu(), sol_calibrate.scalar_sync_plain(x, iters))
+    want = sol_calibrate.scalar_sync_plain(nonpos, iters)
+    assert torch.equal(sync512.cpu(), want) and torch.equal(sync1024.cpu(), want)
+
+
+@pytest.mark.parametrize("R,W", [(8, 2048), (5, 36), (300, 4100)])
+def test_k_wide_equals_plain_version(device, R, W):
+    tab, idx = gather_probe.random_inputs(R, W, device, seed=R)
+    before = gather_probe.LAUNCHES["k_wide"]
+    out = gather_probe.k_wide(tab, idx)
+    torch.cuda.synchronize()
+    assert gather_probe.LAUNCHES["k_wide"] == before + 1
+    assert torch.equal(out, gather_probe.k_wide_plain(tab, idx))
+
+
+def test_probes_refuse_what_they_cannot_run(device):
+    x = torch.zeros((2, 8, 128), dtype=torch.int32, device=device)
+    with pytest.raises(ValueError):
+        sol_calibrate.vpu_ops(x.to(torch.int64), 1)
+    with pytest.raises(ValueError):
+        sol_calibrate.gather_chain(x, x.cpu(), 1)
+    with pytest.raises(ValueError):
+        sol_calibrate.scalar_sync(x, 1, threads=256)
+    with pytest.raises(ValueError):
+        sol_calibrate.vpu_ops(x[:, :, ::2], 1)
+    tab, idx = gather_probe.random_inputs(4, 64, device)
+    with pytest.raises(ValueError):     # W not a multiple of 4
+        gather_probe.k_wide(tab, idx[:, :62].contiguous())
+    with pytest.raises(ValueError):     # a start off 16 bytes
+        gather_probe.k_wide(tab[:3], idx.view(-1)[1:193].view(3, 64))
+    lib = sol_calibrate.load_library("sol_calibrate")
+    rc = lib.scalar_sync_launch(x.data_ptr(), x.data_ptr(), 2, 1, 256, device.index,
+                                torch.cuda.current_stream(device).cuda_stream)
+    assert rc != 0
+
+
+def test_calibration_rates(device):
+    """The measuring functions at the TPU script's counts, one tile each: a
+    positive cost per step; the full card's G from the occupancy query."""
+    full = sol_calibrate.resident_tiles("vpu_ops", device)
+    assert full >= torch.cuda.get_device_properties(device).multi_processor_count
+    for r in (sol_calibrate.bench_vpu_ops(device),
+              sol_calibrate.bench_gather(device),
+              sol_calibrate.bench_scalar_sync(device, threads=512)):
+        assert r["ns_per_step"] > 0 and r["per_s"] > 0, r

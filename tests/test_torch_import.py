@@ -1,7 +1,7 @@
 """The PyTorch/CUDA port stands alone: it imports neither jax nor anything of
 wfa_tpu, builds its native host library even without OpenMP, and refuses
-what it does not do: the CUDA backend without a CUDA device, the profiler
-flag and backends it does not have."""
+what it does not do: the card's backends (``cuda``, and ``auto``, the
+default) without a CUDA device, and backends it does not have."""
 import ast
 import ctypes
 import subprocess
@@ -13,7 +13,6 @@ import torch
 
 import wfa_tpu_torch
 from wfa_tpu_torch import AlignmentOptions
-from wfa_tpu_torch.cli import main
 from wfa_tpu_torch.ops import _build
 from wfa_tpu_torch.utils.io import read_seq_file
 
@@ -22,7 +21,8 @@ ROOT = Path(__file__).resolve().parent.parent
 # reference files from wfa_tpu import it on purpose).
 PORT_FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_stage_times.py",
-    ROOT / "tools" / "torch_ring_bw.py",
+    ROOT / "tools" / "torch_ring_bw.py", ROOT / "tools" / "torch_sol_calibrate.py",
+    ROOT / "tools" / "torch_gather_probe.py",
 ]
 
 
@@ -86,9 +86,13 @@ def test_cuda_backend_without_device_raises(monkeypatch):
         wfa_tpu_torch.align_pairs(
             [b"ACGT"], [b"ACGA"], AlignmentOptions(backend="cuda")
         )
-    # auto falls back to the torch engine only in the absence of a device.
+    # auto, the default, is the card too: it never runs on the CPU.
+    for opts in (AlignmentOptions(backend="auto"), AlignmentOptions()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wfa_tpu_torch.align_pairs([b"ACGT"], [b"ACGA"], opts)
+    # Only backend='torch' runs the plain engine on the CPU.
     res = wfa_tpu_torch.align_pairs(
-        [b"ACGT"], [b"ACGA"], AlignmentOptions(backend="auto")
+        [b"ACGT"], [b"ACGA"], AlignmentOptions(backend="torch")
     )
     assert res[0].error == 2 and res[0].finished_on_accelerator
 
@@ -113,8 +117,6 @@ def test_native_host_library_builds_serially(tmp_path):
 
 
 def test_unsupported_requests_raise():
-    seq = str(ROOT / "tests" / "data" / "wfa.utest.seq")
-    assert main(["-i", seq, "-n", "1", "--profile", "trace"]) == 1
     with pytest.raises(ValueError):
         wfa_tpu_torch.align_pairs(
             [b"ACGT"], [b"ACGT"], AlignmentOptions(backend="xla")

@@ -13,8 +13,8 @@ for exact windows wider than a block's shared memory allows) and never
 carries on on the CPU; ``torch`` runs the plain PyTorch engine on CPU
 tensors at the XLA route's window widths, decoding its per-step choice
 table with ``native.traceback_batch``, so its results equal
-``wfa_tpu.align_pairs(backend='xla')``; ``auto`` picks ``cuda`` when a CUDA
-device is present.
+``wfa_tpu.align_pairs(backend='xla')``; ``auto``, the default, is ``cuda``:
+without a CUDA device both raise, and only ``torch`` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -117,13 +117,18 @@ def _plan_tiers(
 
 
 def _resolve_backend(name: str) -> str:
+    """``auto`` is the card, as ``cuda``; either raises without a CUDA
+    device.  Only ``torch`` runs the plain engine on the CPU."""
     if name not in BACKENDS:
         raise ValueError(f"backend {name!r} not in {BACKENDS}")
-    if name == "auto":
-        return "cuda" if torch.cuda.is_available() else "torch"
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("backend='cuda' needs a CUDA device; none is available")
-    return name
+    if name == "torch":
+        return name
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"backend={name!r} needs a CUDA device; none is available "
+            "(backend='torch' runs the plain engine on the CPU)"
+        )
+    return "cuda"
 
 
 def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,

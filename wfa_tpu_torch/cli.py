@@ -2,8 +2,10 @@
 
 The flags and output format of ``wfa_tpu/cli.py`` (the reference CLI surface,
 tools/aligner.c:60-187): one line ``-error<TAB>cigar`` per alignment, ``-O``
-appends the pattern and text.  ``--backend`` takes ``auto``, ``torch`` or
-``cuda``.  ``--profile`` is not supported yet.
+appends the pattern and text.  ``--backend`` takes ``auto`` (the card, as
+``cuda``), ``torch`` (the plain engine on the CPU) or ``cuda``.
+``--profile DIR`` writes a ``torch.profiler`` trace of the alignment run to
+``DIR/trace.json``.
 
     python -m wfa_tpu_torch.cli -i tests/data/wfa.utest.seq -g 1,2,1 -e 10000 -o scores.out
     python -m wfa_tpu_torch.cli -i tests/data/wfa.utest.seq -n 50 -g 1,2,1 -e 100 -x -c
@@ -17,7 +19,7 @@ import time
 import numpy as np
 
 from . import native
-from .aligner import BACKENDS
+from .aligner import BACKENDS, _resolve_backend
 from .params import AlignmentOptions
 from .pipeline import align_pairs_pipelined
 from .types import Penalties
@@ -25,7 +27,7 @@ from .utils.cpu_wfa import align_one_py
 from .utils.device_query import describe
 from .utils.io import SequenceBatch, read_fasta_pair, read_seq_file, write_alignments
 from .utils.logger import LOG, set_verbosity
-from .utils.timers import timed
+from .utils.timers import device_trace, timed
 from .utils.verification import affine_score, check_cigar
 
 
@@ -50,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--print-output", action="store_true", help="print output to stderr")
     p.add_argument("-O", "--output-verbose", action="store_true", help="append pattern/text columns to the output")
     p.add_argument("--backend", choices=BACKENDS, default="auto", help="device engine selection")
-    p.add_argument("--profile", metavar="DIR", help="profiler trace (not supported yet)")
+    p.add_argument("--profile", metavar="DIR", help="write a torch.profiler trace of the alignment run to DIR/trace.json")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 
@@ -130,9 +132,6 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.verbose:
         set_verbosity("DEBUG")
-    if args.profile:
-        LOG.error("--profile is not supported by wfa_tpu_torch yet (see ROADMAP.md).")
-        return 1
 
     LOG.info("Detected %s", describe())
     try:
@@ -170,6 +169,12 @@ def main(argv: list[str] | None = None) -> int:
         if band == 0:
             band = 25
 
+    try:
+        _resolve_backend(args.backend)
+    except RuntimeError as exc:   # no CUDA device for auto or cuda
+        LOG.error("%s", exc)
+        return 1
+
     # Default pipeline batch = N/10 (lib/alignment_parameters.h:100-103).
     batch_size = args.batch_size
     if batch_size is None and len(batch) >= 20:
@@ -186,7 +191,8 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     t0 = time.time()
-    results = align_pairs_pipelined(batch.patterns, batch.texts, opts)
+    with device_trace(args.profile):
+        results = align_pairs_pipelined(batch.patterns, batch.texts, opts)
     wall = time.time() - t0
     print(
         f"Alignment computed. Wall time: {wall:.3f}s "

@@ -33,6 +33,8 @@ SOURCES = {
     "wfa_distance": "wfa_distance.cu",     # K1, K2 and K4
     "wfa_traceback": "wfa_traceback.cu",   # K3
     "ring_bw": "ring_bw.cu",               # K4's ring-row traffic probe
+    "sol_calibrate": "sol_calibrate.cu",   # speed-of-light calibration
+    "gather_probe": "gather_probe.cu",     # the wide-gather probe
 }
 _HEADERS = ("wfa_common.cuh",)
 NVCC_FLAGS = (
@@ -113,6 +115,18 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "ring_bw":
         lib.ring_bw_launch.restype = i
         lib.ring_bw_launch.argtypes = [p, i, i, i, i, p, i, p]
+    elif name == "sol_calibrate":
+        lib.vpu_ops_launch.restype = i
+        lib.vpu_ops_launch.argtypes = [p, p, i, i, i, p]
+        lib.gather_chain_launch.restype = i
+        lib.gather_chain_launch.argtypes = [p, p, p, i, i, i, p]
+        lib.scalar_sync_launch.restype = i
+        lib.scalar_sync_launch.argtypes = [p, p, i, i, i, i, p]
+        lib.sol_blocks_per_sm.restype = i
+        lib.sol_blocks_per_sm.argtypes = [i, i, i, ctypes.POINTER(i)]
+    elif name == "gather_probe":
+        lib.k_wide_launch.restype = i
+        lib.k_wide_launch.argtypes = [p, p, p, i, i, i, p]
     else:
         lib.wfa_traceback_launch.restype = i
         lib.wfa_traceback_launch.argtypes = [

@@ -1,7 +1,8 @@
-// Definitions shared by the port's CUDA sources (wfa_distance.cu: K1 and
-// K2; wfa_traceback.cu: K3).  Each source is built into a shared library of
-// its own (wfa_tpu_torch/ops/_build.py), so each carries its own copy of the
-// C entry point below.
+// Definitions shared by the port's CUDA sources (wfa_distance.cu: K1, K2
+// and K4; wfa_traceback.cu: K3; the probes and calibration kernels use only
+// the error string).  Each source is built into a shared library of its own
+// (wfa_tpu_torch/ops/_build.py), so each carries its own copy of the C entry
+// point below.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -71,7 +71,8 @@ class AlignmentOptions:
     # Pairs left unfinished at ``max_error`` get up to this many further
     # device passes at a doubled error budget before the CPU takes over.
     device_retries: int = 1
-    # "auto", "torch" or "cuda" (wfa_tpu_torch.aligner.BACKENDS).
+    # "auto" (the card, as "cuda"), "torch" (the plain engine on the CPU)
+    # or "cuda" (wfa_tpu_torch.aligner.BACKENDS).
     backend: str = "auto"
 
     def resolved_band(self) -> int:
