@@ -13,7 +13,8 @@ kernels alone, their plain versions and align_pairs, with times: the HiFi
 banded workload (400 pairs of ~14 kbp, W=512, band 25, penalties 2,3,1,
 max_steps 3000) in distance and CIGAR mode on K1 and K2 + K3; the 100 x
 10 kbp golden set at max_error 3000 (exact, W=6016) in distance and CIGAR
-mode on K4; the 16 x 5 kbp ring-wide set (exact, W=9216) on K4; the
+mode on K4, at 1024 and 512 threads a block, with its cells and edge
+traffic; the 16 x 5 kbp ring-wide set (exact, W=9216) on K4; the
 ring-row probe at two sizes; the speed-of-light calibration kernels and the
 wide-gather probe (sol_calibrate.cu, gather_probe.cu), held against their
 plain versions and timed at the TPU script's counts for one tile and for
@@ -61,6 +62,10 @@ INT32_OPS_PER_S = 67e12 / 2
 OPS_PER_CELL = 32
 OPS_PER_CELL_CIGAR = OPS_PER_CELL + 6
 OPS_PER_WALK_STEP = 12
+# K4 before the cone, the shared-memory centre and the shared sequences
+# (the whole [3A, W] ring in global memory, every diagonal every score, 512
+# threads), on an H100 80GB HBM3 at 700 W (PERF.md section 6): ms.
+WHOLE_RING_MS = {"wide10k": 19.135, "wide10k-cigar": 21.684, "ring-wide": 37.7}
 
 
 def phase(name: str, t0: float, detail: str) -> None:
@@ -94,7 +99,7 @@ def main() -> int:
         traceback_torch,
     )
     from wfa_tpu_torch.ops.packing import pack_batch
-    from wfa_tpu_torch.schedule import build_schedule
+    from wfa_tpu_torch.schedule import build_schedule, cone_radii
     from wfa_tpu_torch.utils.device_query import describe
     from wfa_tpu_torch.utils.io import read_seq_file
     from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs, ring_wide_pairs
@@ -102,9 +107,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
 
-    def tensors(pairs, invalid_every=0):
-        lmax = max(max(len(p), len(t)) for p, t in pairs)
-        nw = lmax // 16 + 2
+    def tensors(pairs, invalid_every=0, nw=None):
+        if nw is None:
+            nw = max(max(len(p), len(t)) for p, t in pairs) // 16 + 2
         pat, plen, vp = pack_batch([p for p, _ in pairs], nw)
         txt, tlen, vt = pack_batch([t for _, t in pairs], nw)
         valid = vp & vt
@@ -159,10 +164,22 @@ def main() -> int:
         for name, so in libs.items()
     )
     t_nvcc = time.perf_counter() - t0
+    # Registers of each wfa_kernel<banded, cigar, ring_global>; no spills.
+    regs, kernel = {}, None
+    log = libs["wfa_distance"].with_suffix(".log").read_text().splitlines()
+    for ln in log:
+        if m := re.search(r"wfa_kernelILb(\d)ELb(\d)ELb(\d)E", ln):
+            kernel = "<" + ", ".join(("false", "true")[int(c)] for c in m.groups()) + ">"
+        elif kernel and (m := re.search(r"Used (\d+) registers", ln)):
+            regs[kernel] = int(m.group(1))
+    spills = [ln for ln in log if "spill" in ln and not re.search(
+        r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
+    require(not spills, "wfa_distance.cu spills registers: " + "; ".join(spills))
     # The host library: packing, readers, the CPU fallback, CIGAR decoding.
     require(_build.ensure_native(), "the native host library did not build")
     threads = native.get_lib().wfa_cpu_num_threads()
-    phase("build", t0, f"nvcc sm_90a {t_nvcc:.2f}s: {ptxas}; native host "
+    phase("build", t0, f"nvcc sm_90a {t_nvcc:.2f}s: {ptxas}; wfa_kernel "
+          f"registers {regs}, no spills; native host "
           f"library {time.perf_counter() - t0 - t_nvcc:.2f}s, {threads} CPU "
           "fallback thread(s)")
 
@@ -208,15 +225,75 @@ def main() -> int:
                                    cells * OPS_PER_CELL_CIGAR)
         return cells, bound_ms(nbytes, cells * OPS_PER_CELL)
 
+    def k4_work(cfg, centre, dist, fin):
+        """What K4 did on this run's data, for each pair up to its distance
+        (all scheduled scores if unfinished): the cells it computed (each
+        step's cone, capped at W), the cells of the whole window (every
+        diagonal every score, as K4 did before the cone), and the bytes its
+        global edges moved: each block's slab reset, 3 stores a computed
+        edge cell and each parent read that lands on an edge (the reset of a
+        shrinking cone is not counted: (2,3,1) has none)."""
+        pen, W = cfg.penalties, cfg.wf_width
+        sched = build_schedule(pen, cfg.max_steps, cfg.score_limit)
+        radius, _ = cone_radii(pen, cfg.max_steps, cfg.score_limit)
+        W2 = W // 2
+        r = np.minimum(radius, W2).astype(np.int64)
+        lo, hi = W2 - r, np.minimum(W - 1, W2 + r)
+        c_lo = (W - centre) // 2
+        c_hi = c_lo + centre - 1
+
+        def on_edges(a, b):   # lanes a..b outside the centre c_lo..c_hi
+            n = np.maximum(b - a + 1, 0)
+            return n - np.maximum(np.minimum(b, c_hi) - np.maximum(a, c_lo) + 1, 0)
+
+        edge = on_edges(lo, hi)
+        gap_parents = (sched.moe_slot >= 0).astype(np.int64) + (sched.ide_slot >= 0)
+        reads = ((sched.mx_slot >= 0) * edge
+                 + gap_parents * (on_edges(np.maximum(lo, 1) - 1, hi - 1)
+                                  + on_edges(lo + 1, np.minimum(hi, W - 2) + 1)))
+        cum = {k: np.concatenate([[0], np.cumsum(v)]) for k, v in (
+            ("cells", hi - lo + 1), ("edge", edge), ("bytes", 4 * (3 * edge + reads)))}
+        steps = [int(np.searchsorted(sched.score, d, side="right")) if f
+                 else sched.num_steps for d, f in zip(dist.tolist(), fin.tolist())]
+        slab = 4 * 3 * pen.active_working_set * (W - centre)
+        return {
+            "cells": sum(int(cum["cells"][n]) for n in steps),
+            "edge_cells": sum(int(cum["edge"][n]) for n in steps),
+            "window_cells": sum(steps) * W,
+            "edge_bytes": sum(int(cum["bytes"][n]) for n in steps) + slab * len(steps),
+            "allocated": slab * len(steps),
+        }
+
+    def work_line(work, cone_cells, centre):
+        return (f"C={centre}: {work['cells']} cells computed, {cone_cells} in "
+                f"the cone, {work['window_cells']} in the whole window "
+                f"({work['window_cells'] / work['cells']:.2f}x); "
+                f"{work['edge_cells']} on the global edges "
+                f"({100 * work['edge_cells'] / work['cells']:.1f}%); edges "
+                f"{work['allocated'] / 1e6:.3f} MB allocated, "
+                f"{work['edge_bytes'] / 1e9:.3f} GB moved")
+
+    def threads_ms(fn, reps=3):
+        """K4 at 1024 and 512 threads a block, in turns (1024, 512, 512,
+        1024): the mean ms of each."""
+        fn(1024)
+        fn(512)
+        torch.cuda.synchronize()
+        t = {1024: 0.0, 512: 0.0}
+        for n in (1024, 512, 512, 1024):
+            t[n] += cuda_ms(lambda: fn(n), reps)[0] / 2
+        return t
+
     smem = engine_cuda.smem_optin(dev)
 
     def route_config(pats, txts, opts):
-        """The config align_pairs(backend='cuda') launches on one tier."""
+        """The config align_pairs(backend='cuda') launches on one tier, and
+        the tier's packed words per sequence."""
         lens = np.array([max(len(p), len(t)) for p, t in zip(pats, txts)])
         plans = aligner._plan_tiers(lens, opts, opts.max_error)
         require(len(plans) == 1, "expected one length tier")
-        return aligner._tier_geometry_cuda(plans[0], opts, opts.max_error,
-                                           -1, smem)
+        return (*aligner._tier_geometry_cuda(plans[0], opts, opts.max_error,
+                                             -1, smem), plans[0].nwords)
 
     # ---- 3. K1 against the plain version on the card ----
     t0 = time.perf_counter()
@@ -369,7 +446,8 @@ def main() -> int:
         require(torch.equal(tables["finished"], plain["finished"])
                 and torch.equal(tables["distance"], plain["distance"]),
                 f"K2 distances differ: {what}")
-        require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables),
+        require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables,
+                                          cone=True),
                 f"K2 choice table differs on the readable region: {what}")
         require(torch.equal(fused, want), f"K2 + K3 rows differ: {what}")
         max_err["wfa_cigar"] = max(max_err["wfa_cigar"], (
@@ -512,24 +590,29 @@ def main() -> int:
           f"no corrupt walk, CIGARs equal the reference x{HIFI_REPS}; "
           f"{cells} cells, {rows} choice rows, {walk_steps} walk steps; [{smi}]")
 
-    # ---- 9. K4 (the ring in global memory) against the plain versions ----
+    # ---- 9. K4 (the ring's edges in global memory) against the plain versions ----
     t0 = time.perf_counter()
-    n_cases = n_lanes = n_same = 0
-    cases = [(pen, w) for pen in pens for w in (128, 512, 1024)]
-    cases.append((Penalties(70, 6, 2), 512))   # a ring of 436 KB per block
-    for pen, w in cases:
+    n_cases = n_lanes = n_same = n_cross = 0
+    # (pen, W, pinned centre or None, threads or 0): the pinned centres are
+    # narrower than the cone, so cells cross from shared to global memory.
+    cases = [(pen, w, None, 0) for pen in pens for w in (128, 512, 1024)]
+    cases += [(Penalties(70, 6, 2), 512, None, 0),   # a ring of 436 KB per block
+              (Penalties(2, 3, 1), 512, 64, 0), (Penalties(4, 1, 2), 1024, 128, 512),
+              (Penalties(70, 6, 2), 512, 64, 0), (Penalties(3, 1, 3), 512, 32, 0)]
+    for pen, w, centre, threads in cases:
         pairs = EDGE_PAIRS + random_pairs(rng, 96, 10, 1000)
         args = tensors(pairs, invalid_every=13)
+        pin = dict(_centre=centre, _threads=threads)
         cfg = engine_torch.EngineConfig(pen, 200, w, -1, ring_global=True)
         ccfg, tb = cigar_configs(pen, 200, w, -1, ring_global=True)
-        got = engine_cuda.align_batch_cuda(cfg, *args)
-        tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args)
-        fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args)
+        got = engine_cuda.align_batch_cuda(cfg, *args, **pin)
+        tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args, **pin)
+        fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args, **pin)
         torch.cuda.synchronize()
         want = engine_torch.align_batch_device(cfg, *args)
         plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
         want_fused = fused_plain(tb, plain, args)
-        what = f"pen={pen} W={w}"
+        what = f"pen={pen} W={w} centre={centre} threads={threads}"
         err = (got["distance"] - want["distance"]).abs().max().item()
         require(err == 0 and torch.equal(got["finished"], want["finished"]),
                 f"K4 distances differ: {what}")
@@ -538,9 +621,15 @@ def main() -> int:
         require(cerr == 0 and torch.equal(tables["finished"], plain["finished"]),
                 f"K4 CIGAR-mode distances differ: {what}")
         max_err["wfa_cigar_ring"] = max(max_err["wfa_cigar_ring"], cerr)
-        require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables),
+        require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables,
+                                          cone=True),
                 f"K4 choice table differs on the readable region: {what}")
         require(torch.equal(fused, want_fused), f"K4 + K3 rows differ: {what}")
+        if centre is not None:
+            work = k4_work(cfg, centre, want["distance"].cpu(),
+                           want["finished"].cpu())
+            require(work["edge_cells"] > 0, f"no cell on the edges: {what}")
+            n_cross += 1
         if engine_cuda.smem_bytes(pen.active_working_set, w, True) <= smem:
             k1 = engine_cuda.align_batch_cuda(
                 dataclasses.replace(cfg, ring_global=False), *args)
@@ -553,8 +642,10 @@ def main() -> int:
         n_cases += 1
         n_lanes += len(pairs)
     phase("k4-vs-plain", t0, f"{n_cases} cases, {n_lanes} lanes: distances, "
-          "flags and fused rows equal, tables equal on the readable region; "
-          f"equal to K1/K2 on the {n_same} cases a shared ring holds")
+          "flags and fused rows equal, tables equal on the cone's readable "
+          f"region; {n_cross} cases with a pinned centre crossing to the "
+          f"global edges; equal to K1/K2 on the {n_same} cases a shared ring "
+          "holds")
 
     # ---- 10. wide10k: seq_10K_n100 at max_error 3000, exact, on K4 ----
     t0 = time.perf_counter()
@@ -564,13 +655,16 @@ def main() -> int:
         (DATA / "seq_10K_n100.golden.json").read_text())["results_10K_n100_x2o3e1"]]
     n10 = len(w10.patterns)
     dopts = AlignmentOptions(penalties=pen, max_error=3000, backend="cuda")
-    cfg10, full10, _, _ = route_config(w10.patterns, w10.texts, dopts)
+    cfg10, full10, _, _, nw10 = route_config(w10.patterns, w10.texts, dopts)
     require(cfg10.ring_global and cfg10.wf_width == 6016 and full10,
             f"seq_10K_n100: expected K4 at W=6016, got {cfg10}")
-    args10 = tensors(list(zip(w10.patterns, w10.texts)))
+    args10 = tensors(list(zip(w10.patterns, w10.texts)), nw=nw10)
+    centre10 = engine_cuda.centre_width(5, 6016, nw10, False, smem)
     engine_cuda.align_batch_cuda(cfg10, *args10)       # warm-up
     torch.cuda.synchronize()
     k4_ms, out10 = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg10, *args10), 3)
+    k4_threads = threads_ms(
+        lambda n: engine_cuda.align_batch_cuda(cfg10, *args10, _threads=n))
     require(bool(out10["finished"].all())
             and out10["distance"].tolist() == gold10,
             "seq_10K_n100: K4 distances differ from the goldens")
@@ -581,6 +675,8 @@ def main() -> int:
             "seq_10K_n100: the plain version differs from K4")
     k4_cells, k4_bound = exact_bound(cfg10, out10["distance"].cpu(),
                                      out10["finished"].cpu(), args10, False)
+    work10 = k4_work(cfg10, centre10, out10["distance"].cpu(),
+                     out10["finished"].cpu())
     # What the global ring costs: K1 and K4 on the same pairs at the widest
     # window a shared ring holds, the loop stopped at its certificate.
     cut = engine_cuda.max_width(pen.active_working_set, smem)
@@ -608,23 +704,29 @@ def main() -> int:
             "seq_10K_n100: align_pairs left pairs to the CPU")
 
     copts = dataclasses.replace(dopts, compute_cigar=True)
-    ccfg10, cfull10, _, cap10 = route_config(w10.patterns, w10.texts, copts)
+    ccfg10, cfull10, _, cap10, _ = route_config(w10.patterns, w10.texts, copts)
     require(ccfg10.ring_global and ccfg10.wf_width == 6016 and cfull10,
             f"seq_10K_n100 CIGAR: expected K4 at W=6016, got {ccfg10}")
+    ccentre10 = engine_cuda.centre_width(5, 6016, nw10, True, smem)
     engine_cuda.cigar_tables_cuda(ccfg10, cap10, *args10)   # warm-up
     torch.cuda.synchronize()
     k4c_ms, tables10 = cuda_ms(
         lambda: engine_cuda.cigar_tables_cuda(ccfg10, cap10, *args10), 3)
+    k4c_threads = threads_ms(
+        lambda n: engine_cuda.cigar_tables_cuda(ccfg10, cap10, *args10, _threads=n))
     k4c_plain_ms, cplain10 = cuda_ms(
         lambda: engine_torch.cigar_tables(ccfg10, cap10, *args10), 1)
     cerr = (cplain10["distance"] - tables10["distance"]).abs().max().item()
     require(cerr == 0 and torch.equal(cplain10["finished"], tables10["finished"])
-            and engine_torch.tables_equal(ccfg10, cap10, cplain10, tables10),
+            and engine_torch.tables_equal(ccfg10, cap10, cplain10, tables10,
+                                          cone=True),
             "seq_10K_n100: the plain CIGAR tables differ from K4's")
     max_err["wfa_distance_ring"] = max(max_err["wfa_distance_ring"], err)
     max_err["wfa_cigar_ring"] = max(max_err["wfa_cigar_ring"], cerr)
     k4c_cells, k4c_bound = exact_bound(ccfg10, tables10["distance"].cpu(),
                                        tables10["finished"].cpu(), args10, True)
+    cwork10 = k4_work(ccfg10, ccentre10, tables10["distance"].cpu(),
+                      tables10["finished"].cpu())
     del cplain10, plain10
 
     align_pairs(w10.patterns[:4], w10.texts[:4], copts)   # warm-up
@@ -653,18 +755,23 @@ def main() -> int:
         engine_cuda.align_cigar_cuda = kernel_route
     require([r.cigar for r in plain_res] == [r.cigar for r in cres[:16]],
             "seq_10K_n100: CIGARs differ from the plain route's")
-    ring_mb = engine_cuda.ring_bytes(5, 6016) * n10 / 1e6
     phase("wide10k", t0,
-          f"{n10} pairs, W=6016 (ring {ring_mb:.1f} MB): K4 {k4_ms:.3f} ms, "
-          f"plain {k4_plain_ms:.3f} ms; at W={cut}, cut at its certificate: "
+          f"{n10} pairs, W=6016: K4 {k4_ms:.3f} ms (1024 threads "
+          f"{k4_threads[1024]:.3f}, 512 threads {k4_threads[512]:.3f}; the "
+          f"whole ring {WHOLE_RING_MS['wide10k']} ms), plain "
+          f"{k4_plain_ms:.3f} ms; {work_line(work10, k4_cells, centre10)}; "
+          f"at W={cut}, cut at its certificate: "
           f"K1 {k1_cut_ms:.3f} ms, K4 {k4_cut_ms:.3f} ms, equal; "
           f"align_pairs {w10_s * 1e3:.3f} ms "
           f"({n10 / w10_s:.1f} aln/s), all on card, distances equal the "
-          f"goldens; CIGAR: K4 tables {k4c_ms:.3f} ms, plain {k4c_plain_ms:.3f} "
-          f"ms; align_pairs {c10_s * 1e3:.3f} ms ({n10 / c10_s:.1f} aln/s), all "
+          f"goldens; CIGAR: K4 tables {k4c_ms:.3f} ms (1024 threads "
+          f"{k4c_threads[1024]:.3f}, 512 threads {k4c_threads[512]:.3f}; the "
+          f"whole ring {WHOLE_RING_MS['wide10k-cigar']} ms), plain "
+          f"{k4c_plain_ms:.3f} ms; {work_line(cwork10, k4c_cells, ccentre10)}; "
+          f"align_pairs {c10_s * 1e3:.3f} ms ({n10 / c10_s:.1f} aln/s), all "
           "on card, every CIGAR valid and rescoring to its golden, equal to "
-          f"the plain route's on 16 pairs ({route_plain_s:.2f}s); {k4_cells} "
-          f"cells; launches {k4c_launches}; [{smi}]")
+          f"the plain route's on 16 pairs ({route_plain_s:.2f}s); "
+          f"launches {k4c_launches}; [{smi}]")
 
     # ---- 11. ring-wide: 16 x 5 kbp at 50% substitution, exact, on K4 ----
     t0 = time.perf_counter()
@@ -673,13 +780,20 @@ def main() -> int:
     rw_t = [t for _, t in rw]
     ropts = AlignmentOptions(penalties=pen, max_error=4600, cpu_fallback=False,
                              backend="cuda")
-    cfg_rw, full_rw, _, _ = route_config(rw_p, rw_t, ropts)
+    cfg_rw, full_rw, _, _, nw_rw = route_config(rw_p, rw_t, ropts)
     require(cfg_rw.ring_global and cfg_rw.wf_width == 9216 and full_rw,
             f"ring-wide: expected K4 at W=9216, got {cfg_rw}")
-    args_rw = tensors(rw)
+    args_rw = tensors(rw, nw=nw_rw)
+    centre_rw = engine_cuda.centre_width(5, 9216, nw_rw, False, smem)
     engine_cuda.align_batch_cuda(cfg_rw, *args_rw)     # warm-up
     torch.cuda.synchronize()
     rw_ms, out_rw = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg_rw, *args_rw), 3)
+    rw_threads = threads_ms(
+        lambda n: engine_cuda.align_batch_cuda(cfg_rw, *args_rw, _threads=n))
+    rw_cells, _ = exact_bound(cfg_rw, out_rw["distance"].cpu(),
+                              out_rw["finished"].cpu(), args_rw, False)
+    work_rw = k4_work(cfg_rw, centre_rw, out_rw["distance"].cpu(),
+                      out_rw["finished"].cpu())
     rw_plain_ms, plain_rw = cuda_ms(
         lambda: engine_torch.align_batch_device(cfg_rw, *args_rw), 1)
     err = (plain_rw["distance"] - out_rw["distance"]).abs().max().item()
@@ -705,8 +819,11 @@ def main() -> int:
     require([int(v) for v in oracle] == [res[0].error, res[8].error],
             "ring-wide: the CPU oracle disagrees on pairs 0 and 8")
     phase("ring-wide", t0,
-          f"16 pairs, W=9216: K4 {rw_ms:.3f} ms, plain {rw_plain_ms:.3f} ms, "
-          f"equal; align_pairs {rw_s * 1e3:.3f} ms, 16/16 on card, distances "
+          f"16 pairs, W=9216: K4 {rw_ms:.3f} ms (1024 threads "
+          f"{rw_threads[1024]:.3f}, 512 threads {rw_threads[512]:.3f}; the "
+          f"whole ring {WHOLE_RING_MS['ring-wide']} ms), plain "
+          f"{rw_plain_ms:.3f} ms, equal; {work_line(work_rw, rw_cells, centre_rw)}; "
+          f"align_pairs {rw_s * 1e3:.3f} ms, 16/16 on card, distances "
           f"{least}..{max(r.error for r in res)}, CPU oracle equal on pairs "
           f"0 and 8; [{smi}]")
 

@@ -159,13 +159,14 @@ def test_geometry_exact_truncates_and_certifies():
     assert engine_cuda.max_width(5, 48 * 1024) == 768
     cfg, full, _ = _geom(1024, 2053, smem=48 * 1024)
     assert (cfg.wf_width, cfg.ring_global, full) == (2176, True, True)
-    # K4's launches keep the ring in the memory budget: 2**16 pairs at
-    # W=6016 would need 23 GB.
+    # K4's launches keep the edge ring in the memory budget: at W=6016 the
+    # centre holds 3712 diagonals, so 2**16 pairs would need 9 GB of edges.
     opts = AlignmentOptions(penalties=Penalties(2, 3, 1))
-    call_b = _distance_call_batch(opts, 6016, True)
-    assert engine_cuda.ring_bytes(5, 6016) == 360_960
-    assert 100 <= call_b and call_b * 360_960 <= 1 << 30
-    assert _distance_call_batch(opts, 6016, False) == _CUDA_CALL_BATCH
+    assert engine_cuda.centre_width(5, 6016, 1025, False, H100_SMEM) == 3712
+    assert engine_cuda.ring_bytes(5, 6016, 3712) == 138_240
+    call_b = _distance_call_batch(opts, 138_240)
+    assert 100 <= call_b and call_b * 138_240 <= 1 << 30
+    assert _distance_call_batch(opts, 0) == _CUDA_CALL_BATCH
 
 
 def test_geometry_banded_never_truncates():
@@ -236,8 +237,10 @@ def test_geometry_cigar_mode():
     assert (cfg.wf_width, cfg.ring_global, full) == (6016, True, True)
     assert cap == build_schedule(pen, 3000, limit).unfinished_score + 1
     assert cfg.score_limit == cap - 1
-    call_b = _cigar_call_batch(opts, cap, 6016, ring_global=True)
-    per_lane = num_chunks(cap) * 6016 * 4 + engine_cuda.ring_bytes(5, 6016)
+    centre = engine_cuda.centre_width(5, 6016, 1025, True, H100_SMEM)
+    ring = engine_cuda.ring_bytes(5, 6016, centre)
+    call_b = _cigar_call_batch(opts, cap, 6016, ring)
+    per_lane = num_chunks(cap) * 6016 * 4 + ring
     assert 1 <= call_b and call_b * per_lane <= 1 << 30
     assert _cigar_call_batch(opts, cap, 6016) > call_b
     # Past 16384 diagonals: truncated and certified, the table capped.
@@ -247,4 +250,6 @@ def test_geometry_cigar_mode():
     assert cap == cert + 1 and cfg.score_limit == cert
     # A budget past 2**31 table cells: the kernels index with 64-bit offsets.
     big = dataclasses.replace(opts, memory_budget_bytes=64 << 30)
-    assert _cigar_call_batch(big, cap, 16384, True) * num_chunks(cap) * 16384 > 2**31
+    ring = engine_cuda.ring_bytes(
+        5, 16384, engine_cuda.centre_width(5, 16384, 1025, True, H100_SMEM))
+    assert _cigar_call_batch(big, cap, 16384, ring) * num_chunks(cap) * 16384 > 2**31

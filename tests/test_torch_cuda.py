@@ -3,11 +3,12 @@
 K1 (wfa_tpu_torch/ops/csrc/wfa_distance.cu): ``distance`` and ``finished``
 equal in every lane.  K2 (the same source, CIGAR mode): distances and flags
 equal, and the choice table and ``lo_trace`` equal wherever a backward walk
-can read them (``engine_torch.tables_equal``).  K3
-(wfa_tpu_torch/ops/csrc/wfa_traceback.cu): the fused rows (distance,
-finished, n_ops, 0, op stream) equal.  K4 (wfa_distance.cu with the ring in
-global memory, ``ring_global``): the same outputs as the plain versions and
-as K1/K2 where both run.  The ring-row probe (csrc/ring_bw.cu): the ring and
+can read them (``engine_torch.tables_equal``; exact tables on the cone).
+K3 (wfa_tpu_torch/ops/csrc/wfa_traceback.cu): the fused rows (distance,
+finished, n_ops, 0, op stream) equal.  K4 (wfa_distance.cu with the ring's
+edges in global memory, ``ring_global``): the same outputs as the plain
+versions and as K1/K2 where both run, also with a centre pinned narrower
+than the cone, so that cells cross from shared to global memory.  The ring-row probe (csrc/ring_bw.cu): the ring and
 the sums equal.  The calibration kernels (csrc/sol_calibrate.cu) and the
 wide-gather probe (csrc/gather_probe.cu): outputs equal.  Tolerance 0
 throughout.
@@ -123,7 +124,7 @@ def test_k2_k3_equal_plain_version(device, band, pen, width):
     plain = engine_torch.cigar_tables(cfg, tb.score_cap, *args)
     assert torch.equal(got["finished"], plain["finished"])
     assert torch.equal(got["distance"], plain["distance"])
-    assert engine_torch.tables_equal(cfg, tb.score_cap, plain, got)
+    assert engine_torch.tables_equal(cfg, tb.score_cap, plain, got, cone=True)
     want = traceback_torch.align_cigar_fused(cfg, tb, *args)
     assert torch.equal(fused, want)
     assert torch.equal(engine_cuda.align_cigar_cuda(cfg, tb, *args), want)
@@ -149,22 +150,27 @@ def test_k3_walk_errors_equal_plain_version(device):
 
 
 @pytest.mark.parametrize(
-    "pen,width",
-    [(Penalties(2, 3, 1), 128), (Penalties(4, 1, 2), 512),
-     (Penalties(1, 0, 1), 1024), (Penalties(70, 6, 2), 512)],
+    "pen,width,centre,threads",
+    [(Penalties(2, 3, 1), 128, None, 0), (Penalties(4, 1, 2), 512, None, 0),
+     (Penalties(1, 0, 1), 1024, None, 0), (Penalties(70, 6, 2), 512, None, 0),
+     (Penalties(2, 3, 1), 512, 64, 0), (Penalties(1, 0, 1), 1024, 128, 512),
+     (Penalties(70, 6, 2), 512, 64, 0), (Penalties(3, 1, 3), 512, 32, 0)],
 )
-def test_k4_equals_plain_version(device, pen, width):
+def test_k4_equals_plain_version(device, pen, width, centre, threads):
     """K4 in distance and CIGAR mode; (70,6,2) at W=512 needs 436 KB of ring,
-    more than a block's shared memory."""
-    rng = np.random.default_rng(3 * width + pen.x)
+    more than a block's shared memory.  A pinned centre of 32-128 diagonals
+    puts most of each cone in the global edges; (3,1,3) has a step whose cone
+    is narrower than its slot's previous one."""
+    rng = np.random.default_rng(3 * width + pen.x + (centre or 0))
     pairs = EDGE_PAIRS + random_pairs(rng, 48, 10, 600)
     args = _tensors(pairs, device, invalid_every=9)
+    pin = dict(_centre=centre, _threads=threads)
     cfg = engine_torch.EngineConfig(pen, 120, width, -1, ring_global=True)
     before = dict(engine_cuda.LAUNCHES)
-    got = engine_cuda.align_batch_cuda(cfg, *args)
+    got = engine_cuda.align_batch_cuda(cfg, *args, **pin)
     ccfg, tb = _cigar_configs(pen, 120, width, -1, ring_global=True)
-    tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args)
-    fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args)
+    tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args, **pin)
+    fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args, **pin)
     torch.cuda.synchronize()
     assert engine_cuda.LAUNCHES["wfa_distance_ring"] == before["wfa_distance_ring"] + 1
     assert engine_cuda.LAUNCHES["wfa_cigar_ring"] == before["wfa_cigar_ring"] + 2
@@ -176,8 +182,19 @@ def test_k4_equals_plain_version(device, pen, width):
     plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
     assert torch.equal(tables["finished"], plain["finished"])
     assert torch.equal(tables["distance"], plain["distance"])
-    assert engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables)
+    assert engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables, cone=True)
     assert torch.equal(fused, traceback_torch.align_cigar_fused(ccfg, tb, *args))
+
+
+def test_k4_refuses_a_centre_it_cannot_take(device):
+    args = _tensors(EDGE_PAIRS, device)
+    cfg = engine_torch.EngineConfig(Penalties(2, 3, 1), 50, 256, -1,
+                                    ring_global=True)
+    for centre in (0, 48, 288):   # none, off the granule, wider than W
+        with pytest.raises(ValueError, match="centre"):
+            engine_cuda.align_batch_cuda(cfg, *args, _centre=centre)
+    with pytest.raises(RuntimeError):   # more threads than K4's block takes
+        engine_cuda.align_batch_cuda(cfg, *args, _threads=2048)
 
 
 def test_k4_equals_k1_k2(device):
@@ -210,13 +227,13 @@ def test_k4_refuses_a_band(device):
         pen, 50, None, device)
     dist = torch.empty(B, dtype=torch.int32, device=device)
     fin = torch.empty(B, dtype=torch.bool, device=device)
-    ring = torch.empty((B, 15, 128), dtype=torch.int32, device=device)
+    edges = torch.empty((B, 15, 64), dtype=torch.int32, device=device)
     lib = engine_cuda.load_library("wfa_distance")
     rc = lib.wfa_distance_launch(
         *(t.data_ptr() for t in args[:2]), nw,
         *(t.data_ptr() for t in args[2:]), sched.data_ptr(), num_steps,
         unfinished, 5, 128, 25, dist.data_ptr(), fin.data_ptr(),
-        ring.data_ptr(), B, device.index,
+        edges.data_ptr(), 64, 0, B, device.index,
         torch.cuda.current_stream(device).cuda_stream,
     )
     assert rc != 0

@@ -1,5 +1,6 @@
-"""The wide exact path of the port (K4: the wavefront ring in global memory)
-against wfa_tpu's HBM-ring kernel (``PallasConfig.ring_hbm``), on the CPU.
+"""The wide exact path of the port (K4: the wavefront ring's edges in global
+memory) against wfa_tpu's HBM-ring kernel (``PallasConfig.ring_hbm``), on the
+CPU.
 
 K4 cannot run here; its plain versions can.  They are the port's plain
 engine and CIGAR tables at the same config (``EngineConfig.ring_global``,
@@ -254,6 +255,9 @@ def test_cuda_wrappers_run_plain_versions_on_cpu_tensors():
     fused = engine_cuda.align_cigar_cuda(ring, tb, *args)
     assert torch.equal(fused, traceback_torch.align_cigar_fused(shared, tb, *args))
     assert engine_cuda.LAUNCHES == before
-    assert engine_cuda.smem_bytes(5, 16384, cigar=True, ring_global=True) == (
-        4 * (10 + 66 + 16384))
-    assert engine_cuda.ring_bytes(5, 6016) == 360_960
+    # K4's block: the ring's centre, the slot bases, the scratch, the row
+    # words and the two packed rows, each with a zero word after it.
+    assert engine_cuda.smem_bytes(5, 16384, cigar=True, ring_global=True,
+                                  centre=512, nwords=1025) == (
+        4 * (15 * 512 + 10 + 66 + 16384 + 2 * 1026))
+    assert engine_cuda.ring_bytes(5, 6016, 3712) == 4 * 15 * (6016 - 3712)

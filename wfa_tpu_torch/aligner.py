@@ -137,8 +137,9 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
 
     The window is ``plan.wf_width`` rounded up to 128 diagonals, as on the
     Pallas route, so banded scores equal ``wfa_tpu``'s at the same W.  An
-    exact window wider than a shared-memory ring allows runs on K4, its ring
-    in global memory (``ring_global``), up to ``_RING_MAX_W`` diagonals
+    exact window wider than a shared-memory ring allows runs on K4, its
+    ring's centre in shared memory and its edges in global memory
+    (``ring_global``), up to ``_RING_MAX_W`` diagonals
     (``wfa_tpu/aligner.py:183-201``); past that it is truncated and
     certified: leaving a centred +-W/2 window costs at least
     ``o + e*(W/2+1)``, so a distance below that bound is optimal; the loop
@@ -165,12 +166,13 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
             w = min(w, _RING_MAX_W)
         full_window = w >= plan.wf_width
         score_limit = plan.score_limit
-    need = engine_cuda.smem_bytes(A, w, cigar, ring_global)
-    if need > smem_bytes:
+    if ring_global:
+        # Raises when K4's packed rows and smallest centre do not fit.
+        engine_cuda.centre_width(A, w, plan.nwords, cigar, smem_bytes)
+    elif (need := engine_cuda.smem_bytes(A, w, cigar)) > smem_bytes:
         raise ValueError(
-            f"window W={w} with working set {A} (band={band}, cigar={cigar}, "
-            f"ring_global={ring_global}) needs {need} bytes of shared "
-            f"memory; a block has {smem_bytes}"
+            f"window W={w} with working set {A} (band={band}, cigar={cigar}) "
+            f"needs {need} bytes of shared memory; a block has {smem_bytes}"
         )
     cert_bound = pen.o + pen.e * (w // 2 + 1)
     score_cap = 0
@@ -192,23 +194,20 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
 
 
 def _cigar_call_batch(opts: AlignmentOptions, score_cap: int, w: int,
-                      ring_global: bool = False) -> int:
+                      ring: int = 0) -> int:
     """Pairs per K2/K4 launch: the memory budget over the bytes of one lane's
-    choice table and K4 ring, at most _CUDA_CIGAR_CALL_BATCH."""
-    per_lane = engine_torch.num_chunks(score_cap) * w * 4
-    if ring_global:
-        per_lane += engine_cuda.ring_bytes(opts.penalties.active_working_set, w)
+    choice table and K4 edge ring (``ring``, ``engine_cuda.ring_bytes``), at
+    most _CUDA_CIGAR_CALL_BATCH."""
+    per_lane = engine_torch.num_chunks(score_cap) * w * 4 + ring
     return max(1, min(_CUDA_CIGAR_CALL_BATCH,
                       opts.memory_budget_bytes // per_lane))
 
 
-def _distance_call_batch(opts: AlignmentOptions, w: int,
-                         ring_global: bool) -> int:
-    """Pairs per K1/K4 launch: _CUDA_CALL_BATCH, and for K4 at most the
-    memory budget over one lane's ring."""
-    if not ring_global:
+def _distance_call_batch(opts: AlignmentOptions, ring: int) -> int:
+    """Pairs per K1/K4 launch: _CUDA_CALL_BATCH, and with a K4 edge ring of
+    ``ring`` bytes a lane at most the memory budget over it."""
+    if not ring:
         return _CUDA_CALL_BATCH
-    ring = engine_cuda.ring_bytes(opts.penalties.active_working_set, w)
     return max(1, min(_CUDA_CALL_BATCH, opts.memory_budget_bytes // ring))
 
 
@@ -217,20 +216,27 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
     """One tier on K1 (distance) or K2 + K3 (CIGAR), with K4 in place of K1
     or K2 when the window takes the global ring."""
     device = torch.device("cuda", torch.cuda.current_device())
+    smem = engine_cuda.smem_optin(device)
     cfg, full_window, cert_bound, score_cap = _tier_geometry_cuda(
-        plan, opts, max_error, band, engine_cuda.smem_optin(device)
+        plan, opts, max_error, band, smem
     )
     cigar = opts.compute_cigar
+    # K4's edges: what the ring's centre in shared memory leaves over.
+    ring = 0
+    if cfg.ring_global:
+        A = opts.penalties.active_working_set
+        centre = engine_cuda.centre_width(A, cfg.wf_width, plan.nwords, cigar,
+                                          smem)
+        ring = engine_cuda.ring_bytes(A, cfg.wf_width, centre)
     if cigar:
         tb_cfg = TracebackConfig(
             penalties=opts.penalties, wf_width=cfg.wf_width,
             score_cap=score_cap, banded=cfg.banded,
             lo_pad=engine_torch.lo_pad(score_cap) if cfg.banded else 0,
         )
-        call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width,
-                                   cfg.ring_global)
+        call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width, ring)
     else:
-        call_b = _distance_call_batch(opts, cfg.wf_width, cfg.ring_global)
+        call_b = _distance_call_batch(opts, ring)
     LOG.debug(
         "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s "
         "score_cap=%d call_b=%d full_window=%s cert_bound=%d", plan.tier,

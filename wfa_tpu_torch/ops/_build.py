@@ -103,12 +103,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "wfa_distance":
         lib.wfa_distance_launch.restype = i
         lib.wfa_distance_launch.argtypes = [
-            p, p, i, p, p, p, p, i, i, i, i, i, p, p, p, i, i, p,
+            p, p, i, p, p, p, p, i, i, i, i, i, p, p, p, i, i, i, i, p,
         ]
         lib.wfa_cigar_launch.restype = i
         lib.wfa_cigar_launch.argtypes = [
             p, p, i, p, p, p, p, i, i, i, i, i, p, p,
-            p, i, p, i, p, i, i, p,
+            p, i, p, i, p, i, i, i, i, p,
         ]
         lib.wfa_smem_optin.restype = i
         lib.wfa_smem_optin.argtypes = [i, ctypes.POINTER(i)]

@@ -8,11 +8,12 @@ and K3 (``csrc/wfa_traceback.cu``).
 and ``align_cigar_cuda`` launches K2 then K3 and returns the fused rows of
 ``traceback_torch.align_cigar_fused``.  With ``cfg.ring_global`` the first
 two and ``align_cigar_cuda`` launch K4 in place of K1 and K2: the same
-outputs, with each alignment's [3A, W] ring in a global scratch buffer
-rather than in shared memory.  On CPU tensors each runs its plain version;
-on CUDA tensors it launches its kernel on the current stream or raises — it
-never falls back.  ``LAUNCHES`` counts each kernel's launches, so a run can
-show that its main path went through the kernels.
+outputs, with the ring's centre (``centre_width`` diagonals around W/2) in
+shared memory and its edges in a global scratch buffer.  On CPU tensors each
+runs its plain version; on CUDA tensors it launches its kernel on the
+current stream or raises — it never falls back.  ``LAUNCHES`` counts each
+kernel's launches, so a run can show that its main path went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import functools
 
 import torch
 
-from ..schedule import build_schedule
+from ..schedule import build_schedule, cone_radii
 from . import engine_torch, traceback_torch
 from ._build import check, check_inputs, load_library
 from .engine_torch import EngineConfig
@@ -33,21 +34,46 @@ LAUNCHES = {
 }
 
 _SCRATCH_INTS = 66  # kScratchInts in csrc/wfa_distance.cu
+CENTRE_GRANULE = 32  # kCentreGranule: K4's centre is a multiple of it
 
 
 def smem_bytes(active_working_set: int, width: int, cigar: bool = False,
-               ring_global: bool = False) -> int:
-    """Shared memory of one block: the [3A, W] int32 ring (none for K4), the
-    per-slot window base and extent, the argmin scratch and, in CIGAR mode,
-    one choice row word per diagonal (csrc smem_bytes)."""
+               ring_global: bool = False, centre: int = 0,
+               nwords: int = 0) -> int:
+    """Shared memory of one block: the [3A, W] int32 ring (K4: only its
+    [3A, centre] centre, and the two packed rows of ``nwords`` words, each
+    with a zero word after it), the per-slot window base and extent, the
+    argmin scratch and, in CIGAR mode, one choice row word per diagonal
+    (csrc smem_bytes)."""
     A = active_working_set
-    ring = 0 if ring_global else 3 * A * width
-    return 4 * (ring + 2 * A + _SCRATCH_INTS + (width if cigar else 0))
+    ring = 3 * A * (centre if ring_global else width)
+    seq = 2 * (nwords + 1) if ring_global else 0
+    return 4 * (ring + 2 * A + _SCRATCH_INTS + (width if cigar else 0) + seq)
 
 
-def ring_bytes(active_working_set: int, width: int) -> int:
-    """K4's global ring per alignment: [3A, W] int32."""
-    return 4 * 3 * active_working_set * width
+def centre_width(active_working_set: int, width: int, nwords: int,
+                 cigar: bool, smem: int) -> int:
+    """K4's centre: the most diagonals around W/2, a multiple of
+    ``CENTRE_GRANULE`` and at most W, whose [3A, C] ring fits ``smem`` beside
+    the rest of the block's shared memory (``smem_bytes``).  Raises
+    ValueError when not even one granule fits."""
+    A = active_working_set
+    fixed = smem_bytes(A, width, cigar, True, 0, nwords)
+    c = min(width, max(smem - fixed, 0) // (12 * A)
+            // CENTRE_GRANULE * CENTRE_GRANULE)
+    if c < CENTRE_GRANULE:
+        raise ValueError(
+            f"K4 at W={width}, A={A}, cigar={cigar}: the packed rows of "
+            f"{nwords} words and a centre of {CENTRE_GRANULE} diagonals need "
+            f"{fixed + 12 * A * CENTRE_GRANULE} bytes of shared memory; a "
+            f"block has {smem}"
+        )
+    return c
+
+
+def ring_bytes(active_working_set: int, width: int, centre: int) -> int:
+    """K4's global edge buffer per alignment: [3A, W - centre] int32."""
+    return 4 * 3 * active_working_set * (width - centre)
 
 
 def max_width(active_working_set: int, smem: int, cigar: bool = False) -> int:
@@ -69,21 +95,26 @@ def smem_optin(device: torch.device) -> int:
 
 @functools.lru_cache(maxsize=64)
 def _schedule_tensor(penalties, max_steps, score_limit, device):
+    """The kernels' [S, 7] int32 schedule: score, out slot, the three parent
+    slots, the cone radius and the out slot's previous cone radius."""
     sched = build_schedule(penalties, max_steps, score_limit)
+    radius, previous = cone_radii(penalties, max_steps, score_limit)
     rows = torch.stack([
-        torch.from_numpy(a) for a in (
+        torch.tensor(a) for a in (
             sched.score, sched.out_slot, sched.mx_slot,
-            sched.moe_slot, sched.ide_slot,
+            sched.moe_slot, sched.ide_slot, radius, previous,
         )
     ], dim=1).to(torch.int32).contiguous()
     last = int(sched.score[-1]) if sched.num_steps else 0
     return rows.to(device), sched.num_steps, sched.unfinished_score, last
 
 
-def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool):
+def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool,
+                 centre: int | None):
     """Validate the inputs of K1/K2/K4 on a CUDA device (a band with
     ``ring_global`` cannot reach here: ``EngineConfig`` refuses it); returns
-    (B, nw)."""
+    (B, nw, centre), centre -1 for the shared-memory ring.  K4's centre is
+    ``centre_width`` unless the caller pins it."""
     device = pat.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -98,24 +129,35 @@ def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool):
     if W <= 0 or W % 32:
         raise ValueError(f"wf_width {W} must be a positive multiple of 32")
     A = cfg.penalties.active_working_set
-    need = smem_bytes(A, W, cigar, cfg.ring_global)
     have = smem_optin(device)
+    if cfg.ring_global:
+        if centre is None:
+            return B, nw, centre_width(A, W, nw, cigar, have)
+        need = smem_bytes(A, W, cigar, True, centre, nw)
+        if centre % CENTRE_GRANULE or not CENTRE_GRANULE <= centre <= W \
+                or need > have:
+            raise ValueError(
+                f"K4 centre {centre} at W={W}: a multiple of "
+                f"{CENTRE_GRANULE} up to W whose block ({need} bytes) fits "
+                f"the {have} bytes a block may use"
+            )
+        return B, nw, centre
+    need = smem_bytes(A, W, cigar)
     if need > have:
         raise ValueError(
             f"block of {need} bytes of shared memory (A={A}, W={W}, "
-            f"cigar={cigar}, ring_global={cfg.ring_global}) exceeds the "
-            f"{have} bytes a block may use"
+            f"cigar={cigar}) exceeds the {have} bytes a block may use"
         )
-    return B, nw
+    return B, nw, -1
 
 
-def _ring(cfg: EngineConfig, B: int, device) -> torch.Tensor | None:
-    """K4's [B, 3A, W] scratch ring (each block resets its own slab), or
-    None for the shared-memory ring."""
-    if not cfg.ring_global:
+def _edges(cfg: EngineConfig, B: int, centre: int, device) -> torch.Tensor | None:
+    """K4's [B, 3A, W - centre] edge buffer (each block resets its own
+    slab), or None for the shared-memory ring and for a centre of all W."""
+    if centre < 0 or centre == cfg.wf_width:
         return None
     A = cfg.penalties.active_working_set
-    return torch.empty((B, 3 * A, cfg.wf_width), dtype=torch.int32,
+    return torch.empty((B, 3 * A, cfg.wf_width - centre), dtype=torch.int32,
                        device=device)
 
 
@@ -126,19 +168,21 @@ def align_batch_cuda(
     plen: torch.Tensor,   # [B] int32
     tlen: torch.Tensor,   # [B] int32
     valid: torch.Tensor,  # [B] bool
+    *, _centre: int | None = None, _threads: int = 0,
 ) -> dict[str, torch.Tensor]:
     """K1 (K4 with ``cfg.ring_global``): distances and finished flags of
-    one batch."""
+    one batch.  ``_centre`` pins K4's centre and ``_threads`` the threads a
+    block (0: 512 for K1, 1024 for K4); tests and timings use them."""
     if pat.device.type == "cpu":
         return engine_torch.align_batch_device(cfg, pat, txt, plen, tlen, valid)
-    B, nw = _check_batch(cfg, pat, txt, plen, tlen, valid, cigar=False)
+    B, nw, centre = _check_batch(cfg, pat, txt, plen, tlen, valid, False, _centre)
     device = pat.device
     sched, num_steps, unfinished, _ = _schedule_tensor(
         cfg.penalties, cfg.max_steps, cfg.score_limit, device
     )
     dist = torch.empty(B, dtype=torch.int32, device=device)
     fin = torch.empty(B, dtype=torch.bool, device=device)
-    ring = _ring(cfg, B, device)
+    edges = _edges(cfg, B, centre, device)
     lib = load_library("wfa_distance")
     stream = torch.cuda.current_stream(device).cuda_stream
     check(lib, lib.wfa_distance_launch(
@@ -148,7 +192,8 @@ def align_batch_cuda(
         cfg.penalties.active_working_set, cfg.wf_width,
         cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(),
-        None if ring is None else ring.data_ptr(), B, device.index, stream,
+        None if edges is None else edges.data_ptr(), centre, _threads,
+        B, device.index, stream,
     ))
     LAUNCHES["wfa_distance_ring" if cfg.ring_global else "wfa_distance"] += 1
     return {"distance": dist, "finished": fin}
@@ -156,6 +201,7 @@ def align_batch_cuda(
 
 def cigar_tables_cuda(
     cfg: EngineConfig, score_cap: int, pat, txt, plen, tlen, valid,
+    *, _centre: int | None = None, _threads: int = 0,
 ) -> dict[str, torch.Tensor]:
     """K2 (K4 with ``cfg.ring_global``): ``distance``, ``finished``,
     ``choice_words`` [score_cap//8 + 2, B, W] int32 and, banded,
@@ -163,15 +209,17 @@ def cigar_tables_cuda(
 
     The table and ``lo_trace`` come from ``torch.empty``, not
     ``torch.zeros``: K2 stores every row that holds a scheduled score up to
-    each alignment's distance, and K3 reads no other, so clearing the table
-    (310 MB at HiFi x8, a memset about as long as a tenth of K2) buys
-    nothing.  Rows past an alignment's distance hold whatever the memory
-    held; compare tables only where a walk can read."""
+    each alignment's distance, in exact mode only on the row's cone, and K3
+    reads no other word, so clearing the table (310 MB at HiFi x8, a memset
+    about as long as a tenth of K2) buys nothing.  Rows past an alignment's
+    distance and exact words outside the cone hold whatever the memory held;
+    compare tables only where a walk can read (``engine_torch.tables_equal``
+    with ``cone=True`` in exact mode)."""
     if pat.device.type == "cpu":
         return engine_torch.cigar_tables(
             cfg, score_cap, pat, txt, plen, tlen, valid
         )
-    B, nw = _check_batch(cfg, pat, txt, plen, tlen, valid, cigar=True)
+    B, nw, centre = _check_batch(cfg, pat, txt, plen, tlen, valid, True, _centre)
     device = pat.device
     sched, num_steps, unfinished, last = _schedule_tensor(
         cfg.penalties, cfg.max_steps, cfg.score_limit, device
@@ -193,7 +241,7 @@ def cigar_tables_cuda(
         res["lo_trace"] = torch.empty((B, lo_stride), dtype=torch.int32,
                                       device=device)
         lo_ptr = res["lo_trace"].data_ptr()
-    ring = _ring(cfg, B, device)
+    edges = _edges(cfg, B, centre, device)
     lib = load_library("wfa_distance")
     stream = torch.cuda.current_stream(device).cuda_stream
     check(lib, lib.wfa_cigar_launch(
@@ -202,8 +250,8 @@ def cigar_tables_cuda(
         sched.data_ptr(), num_steps, unfinished,
         cfg.penalties.active_working_set, W, cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(), words.data_ptr(), C,
-        lo_ptr, lo_stride, None if ring is None else ring.data_ptr(),
-        B, device.index, stream,
+        lo_ptr, lo_stride, None if edges is None else edges.data_ptr(),
+        centre, _threads, B, device.index, stream,
     ))
     LAUNCHES["wfa_cigar_ring" if cfg.ring_global else "wfa_cigar"] += 1
     return res
@@ -259,10 +307,12 @@ def traceback_cuda(
 
 def align_cigar_cuda(
     cfg: EngineConfig, tb_cfg: TracebackConfig, pat, txt, plen, tlen, valid,
+    *, _centre: int | None = None, _threads: int = 0,
 ) -> torch.Tensor:
     """K2 (K4 with ``cfg.ring_global``) then K3 on the current stream:
     [B, 4 + opw] int32 rows (distance, finished, n_ops, 0, ops...), the
-    output of ``traceback_torch.align_cigar_fused``."""
+    output of ``traceback_torch.align_cigar_fused``.  ``_centre`` and
+    ``_threads`` go to ``cigar_tables_cuda``."""
     if pat.device.type == "cpu":
         return traceback_torch.align_cigar_fused(
             cfg, tb_cfg, pat, txt, plen, tlen, valid
@@ -272,7 +322,8 @@ def align_cigar_cuda(
     if cfg.banded and tb_cfg.lo_pad != engine_torch.lo_pad(tb_cfg.score_cap):
         raise ValueError(f"lo_pad must be {engine_torch.lo_pad(tb_cfg.score_cap)}")
     tables = cigar_tables_cuda(
-        cfg, tb_cfg.score_cap, pat, txt, plen, tlen, valid
+        cfg, tb_cfg.score_cap, pat, txt, plen, tlen, valid,
+        _centre=_centre, _threads=_threads,
     )
     return traceback_cuda(
         tb_cfg, tables["choice_words"], tables.get("lo_trace"),

@@ -11,11 +11,12 @@ It is the CPU engine of the port and the plain version of the hand-written
 CUDA kernels of ``ops/csrc/wfa_distance.cu``: K1 must equal
 ``align_batch_device`` in every lane, and K2 must equal ``cigar_tables`` (this
 engine plus ``choices_to_words``, the relayout into the Pallas kernel's
-by-score table) wherever a backward walk can read.  K4, the same kernels
-with the wavefront ring in global memory (``EngineConfig.ring_global``),
-must equal the same two functions at the same config: this engine has no
-shared memory, so it ignores the flag.  Unlike the TPU kernel it has no
-limit on the working set.
+by-score table) wherever a backward walk can read (in exact mode, on each
+score's cone: ``readable_masks``).  K4, the same kernels with the wavefront
+ring's edges in global memory (``EngineConfig.ring_global``), must equal
+the same two functions at the same config: this engine has no shared
+memory, so it ignores the flag.  Unlike the TPU kernel it has no limit on
+the working set.
 
 Torch specifics:
 
@@ -35,7 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..schedule import WavefrontSchedule, build_schedule
+from ..schedule import WavefrontSchedule, build_schedule, cone_radii
 from ..types import OFFSET_NULL, AffineOp, Penalties
 
 INT32_MAX = 2**31 - 1
@@ -67,10 +68,10 @@ class EngineConfig:
     score_limit: int | None = None
     # Also return the per-step backtrace choices and window bases.
     compute_cigar: bool = False
-    # Exact only: on the CUDA kernels, keep the M/I/D ring in global memory
-    # (K4) rather than in shared memory, for windows wider than a block's
-    # shared memory allows (PallasConfig.ring_hbm).  The plain engine ignores
-    # it.
+    # Exact only: on the CUDA kernels, keep only the M/I/D ring's centre in
+    # shared memory and its edges in global memory (K4), for windows wider
+    # than a block's shared memory holds (PallasConfig.ring_hbm).  The plain
+    # engine ignores it.
     ring_global: bool = False
 
     def __post_init__(self):
@@ -525,13 +526,17 @@ def cigar_tables(
 
 def readable_masks(
     cfg: EngineConfig, score_cap: int, plain: dict[str, torch.Tensor],
+    cone: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Where a backward walk can read K2's tables, from the plain version's
     ``cigar_tables`` output: for each finished lane of nonzero distance, the
     scheduled scores 1..distance and, at each, the diagonals of that score's
     window (lanes 0..window_ext).  Elsewhere the tables may differ: K2 stops
     at its own alignment's distance and computes no choice outside the
-    window, while the plain engine and the Pallas kernel run on.
+    window, while the plain engine and the Pallas kernel run on.  With
+    ``cone`` (exact mode), only the diagonals of each score's cone, the
+    lanes W/2 +- radius of ``schedule.cone_radii``: the exact kernels
+    compute no others, and no walk reads outside them.
 
     Returns (int64 [C, B, W] bit mask of the readable nibbles of each table
     word, bool [B, lo_pad] mask of the readable ``lo_trace`` columns)."""
@@ -544,10 +549,18 @@ def readable_masks(
     # live[s, b]: score s is on lane b's walkable range.
     live = walked[None, :] & (scores[:, None] <= plain["distance"][None, :].long())
     jr = torch.arange(W, device=device)
+    if cone and not cfg.banded:
+        radius, _ = cone_radii(cfg.penalties, cfg.max_steps, cfg.score_limit)
+        radius = torch.tensor(radius, device=device, dtype=torch.int64)
+        # [S, W]: lane j lies in the cone of step s.
+        in_cone = (jr[None, :] - W // 2).abs() <= radius[:, None]
     mask = torch.zeros((C, B, W), dtype=torch.int64, device=device)
     for nib in range(8):
         sel = (scores & 7) == nib
-        in_win = jr[None, None, :] <= ext[:, scores[sel]].T[:, :, None]
+        if cone and not cfg.banded:
+            in_win = in_cone[sel][:, None, :]
+        else:
+            in_win = jr[None, None, :] <= ext[:, scores[sel]].T[:, :, None]
         cells = live[sel][:, :, None] & in_win
         mask[scores[sel] >> 3] |= cells.to(torch.int64) << (4 * nib)
     lo_mask = torch.zeros(ext.shape, dtype=torch.bool, device=device)
@@ -557,11 +570,13 @@ def readable_masks(
 
 def tables_equal(
     cfg: EngineConfig, score_cap: int, plain: dict[str, torch.Tensor],
-    other: dict[str, torch.Tensor],
+    other: dict[str, torch.Tensor], cone: bool = False,
 ) -> bool:
-    """Whether ``other`` (K2's or the Pallas kernel's tables) equals the
-    plain version's ``cigar_tables`` on the readable region."""
-    mask, lo_mask = readable_masks(cfg, score_cap, plain)
+    """Whether ``other`` (K2's, K4's or the Pallas kernel's tables) equals
+    the plain version's ``cigar_tables`` on the readable region; ``cone``
+    narrows an exact one to the cone (``readable_masks``), for the exact
+    CUDA kernels."""
+    mask, lo_mask = readable_masks(cfg, score_cap, plain, cone)
     a = plain["choice_words"].to(torch.int64)
     b = other["choice_words"].to(device=a.device, dtype=torch.int64)
     if bool(((a ^ b) & mask).any()):

@@ -129,3 +129,35 @@ def build_schedule(
         num_mdi_steps=int((kind == STEP_MDI).sum()),
         unfinished_score=int(score[-1]) + 1 if n else 1,
     )
+
+
+@functools.lru_cache(maxsize=64)
+def cone_radii(
+    penalties: Penalties, max_steps: int, score_limit: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """The cone of each scheduled step: the diagonals ``|k| <= radius`` that
+    its score can reach, by the exact-mode kernels' rule, and the radius of
+    the step that last wrote the same out slot (0 if none did).
+
+    Score 0 reaches diagonal 0 only.  A step reaches as far as its mismatch
+    parent (M at d-x) and one diagonal further than its gap parents (M at
+    d-o-e, I/D at d-e): ``max(r[mx], r[moe] + 1, r[ide] + 1)`` over the
+    parents that exist.  Outside the cone every offset is NULL or derived
+    from NULL.  The radii are uncapped; a window of W diagonals caps both at
+    W // 2.  Returns two int32 arrays of ``num_steps``."""
+    sched = build_schedule(penalties, max_steps, score_limit)
+    slot_radius = [0] * sched.ring_size
+    radius = np.zeros(sched.num_steps, dtype=np.int32)
+    previous = np.zeros(sched.num_steps, dtype=np.int32)
+    for i in range(sched.num_steps):
+        r = 0
+        for slot, grow in ((sched.mx_slot[i], 0), (sched.moe_slot[i], 1),
+                           (sched.ide_slot[i], 1)):
+            if slot >= 0:
+                r = max(r, slot_radius[slot] + grow)
+        out = sched.out_slot[i]
+        previous[i] = slot_radius[out]
+        radius[i] = slot_radius[out] = r
+    # The cache hands the same arrays to every caller.
+    radius.flags.writeable = previous.flags.writeable = False
+    return radius, previous
