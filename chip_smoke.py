@@ -6,23 +6,28 @@
 Needs one NVIDIA GPU (Hopper, sm_90a), nvcc and a C++ compiler; imports no
 jax and nothing of wfa_tpu.  It builds the CUDA kernels from the sources
 (K1, K2 and K4: wfa_tpu_torch/ops/csrc/wfa_distance.cu; K3:
-wfa_traceback.cu; the ring-row probe: ring_bw.cu), holds each against its
-plain PyTorch version on random pairs, drives align_pairs(backend='cuda') on
-the golden score sets in distance and CIGAR mode, and runs through the
-kernels alone, their plain versions and align_pairs, with times: the HiFi
-banded workload (400 pairs of ~14 kbp, W=512, band 25, penalties 2,3,1,
-max_steps 3000) in distance and CIGAR mode on K1 and K2 + K3; the 100 x
-10 kbp golden set at max_error 3000 (exact, W=6016) in distance and CIGAR
-mode on K4, at 1024 and 512 threads a block, with its cells and edge
-traffic; the 16 x 5 kbp ring-wide set (exact, W=9216) on K4; the
-ring-row probe at two sizes; the speed-of-light calibration kernels and the
-wide-gather probe (sol_calibrate.cu, gather_probe.cu), held against their
-plain versions and timed at the TPU script's counts for one tile and for
-the card full; and the CLI's --profile trace, which must name K1.  Every
-phase prints one line with its seconds;
-any failure ends the run with a nonzero exit code.  The line before the last lists every kernel with its
-launches on the main paths, error against its plain version, times and
-bound; the last line is
+wfa_traceback.cu; the ring-row probe: ring_bw.cu), fails on a register
+spill, holds each kernel against its plain PyTorch version on random pairs
+(K1 and K2 also on near-identical 2-5 kbp pairs whose long runs the
+warp-cooperative extension serves, with the packed rows in shared and in
+global memory and, exact, at 512 and 1024 threads a block), drives
+align_pairs(backend='cuda') on the golden score sets in distance and CIGAR
+mode, and runs through the kernels alone, their plain versions and
+align_pairs, with times: the HiFi banded workload (400 pairs of ~14 kbp,
+W=512, band 25, penalties 2,3,1, max_steps 3000) in distance and CIGAR mode
+on K1 and K2 + K3, with the slowest pair's 8 copies alone and the rows in
+global memory beside it; seq_1000_n1000 (exact, W=640) on K1 and K2 at 512
+and 1024 threads; the 100 x 10 kbp golden set at max_error 3000 (exact,
+W=6016) in distance and CIGAR mode on K4, at 1024 and 512 threads a block,
+with its cells and edge traffic, and K1 against K4 at W=3840; the 16 x 5
+kbp ring-wide set (exact, W=9216) on K4; the ring-row probe at two sizes;
+the speed-of-light calibration kernels and the wide-gather probe
+(sol_calibrate.cu, gather_probe.cu), held against their plain versions and
+timed at the TPU script's counts for one tile and for the card full; and
+the CLI's --profile trace, which must name K1.  Every phase prints one line
+with its seconds; any failure ends the run with a nonzero exit code.  The
+line before the last lists every kernel with its launches on the main
+paths, error against its plain version, times and bound; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 from __future__ import annotations
@@ -102,7 +107,9 @@ def main() -> int:
     from wfa_tpu_torch.schedule import build_schedule, cone_radii
     from wfa_tpu_torch.utils.device_query import describe
     from wfa_tpu_torch.utils.io import read_seq_file
-    from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs, ring_wide_pairs
+    from wfa_tpu_torch.utils.synth import (
+        EDGE_PAIRS, long_run_pairs, random_pairs, ring_wide_pairs,
+    )
     from wfa_tpu_torch.utils.verification import affine_score, check_cigar
 
     dev = torch.device("cuda", 0)
@@ -164,17 +171,19 @@ def main() -> int:
         for name, so in libs.items()
     )
     t_nvcc = time.perf_counter() - t0
-    # Registers of each wfa_kernel<banded, cigar, ring_global>; no spills.
+    # Registers of each wfa_kernel<banded, cigar, ring_global, rows shared>;
+    # no spills.
     regs, kernel = {}, None
     log = libs["wfa_distance"].with_suffix(".log").read_text().splitlines()
     for ln in log:
-        if m := re.search(r"wfa_kernelILb(\d)ELb(\d)ELb(\d)E", ln):
+        if m := re.search(r"wfa_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", ln):
             kernel = "<" + ", ".join(("false", "true")[int(c)] for c in m.groups()) + ">"
         elif kernel and (m := re.search(r"Used (\d+) registers", ln)):
             regs[kernel] = int(m.group(1))
     spills = [ln for ln in log if "spill" in ln and not re.search(
         r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
     require(not spills, "wfa_distance.cu spills registers: " + "; ".join(spills))
+    require(len(regs) == 10, f"expected 10 wfa_kernel instantiations, got {regs}")
     # The host library: packing, readers, the CPU fallback, CIGAR decoding.
     require(_build.ensure_native(), "the native host library did not build")
     threads = native.get_lib().wfa_cpu_num_threads()
@@ -274,8 +283,8 @@ def main() -> int:
                 f"{work['edge_bytes'] / 1e9:.3f} GB moved")
 
     def threads_ms(fn, reps=3):
-        """K4 at 1024 and 512 threads a block, in turns (1024, 512, 512,
-        1024): the mean ms of each."""
+        """A kernel at 1024 and 512 threads a block, in turns (1024, 512,
+        512, 1024): the mean ms of each."""
         fn(1024)
         fn(512)
         torch.cuda.synchronize()
@@ -329,6 +338,28 @@ def main() -> int:
         max_err["wfa_distance"] = max(max_err["wfa_distance"], err)
         n_cases += 1
         n_lanes += len(pairs)
+    # Long runs (near-identical 2-5 kbp pairs: runs past 512 bases, to
+    # either end, homopolymers) with the rows in shared and in global memory
+    # and, exact, at 512 and 1024 threads a block.
+    long_pairs = EDGE_PAIRS + long_run_pairs(rng, 42)
+    long_args = tensors(long_pairs, invalid_every=17)
+    # (band, penalties, W); the exact windows are wide enough for 1024 threads.
+    long_cases = [(-1, Penalties(2, 3, 1), 1024), (25, Penalties(2, 3, 1), 512),
+                  (-1, Penalties(4, 1, 2), 2048), (10, Penalties(1, 0, 1), 256)]
+    n_long = 0
+    for band, pen, w in long_cases:
+        cfg = engine_torch.EngineConfig(pen, 200, w, band)
+        want = engine_torch.align_batch_device(cfg, *long_args)
+        for rows in ("shared", "global"):
+            for nt in (512, 1024) if band < 0 else (0,):
+                got = engine_cuda.align_batch_cuda(cfg, *long_args, _rows=rows,
+                                                   _threads=nt)
+                err = (got["distance"] - want["distance"]).abs().max().item()
+                require(err == 0 and torch.equal(got["finished"], want["finished"]),
+                        f"long runs: K1 differs: band={band} pen={pen} W={w} "
+                        f"rows={rows} threads={nt}")
+                max_err["wfa_distance"] = max(max_err["wfa_distance"], err)
+                n_long += 1
     for band in (-1, 25):
         try:
             engine_cuda.align_batch_cuda(
@@ -340,7 +371,9 @@ def main() -> int:
         require(False, "(70,6,2) at W=512 did not raise ValueError")
     phase("k1-vs-plain", t0, f"{n_cases} cases, {n_lanes} lanes, arrays equal "
           f"(inputs {prep_s:.2f}s, K1 {k1_s:.2f}s, plain {plain_s:.2f}s); "
-          "(70,6,2) at W=512 refused")
+          f"long runs: {len(long_pairs)} pairs, {n_long} launches over "
+          f"{len(long_cases)} configs x both row placements (x 512 and "
+          "1024 threads exact), arrays equal; (70,6,2) at W=512 refused")
 
     # ---- 4. Exact goldens through align_pairs(backend='cuda') ----
     t0 = time.perf_counter()
@@ -399,6 +432,23 @@ def main() -> int:
     require(err == 0 and torch.equal(plain["finished"], out["finished"]),
             "HiFi: plain version differs from K1")
     max_err["wfa_distance"] = max(max_err["wfa_distance"], err)
+    # Where K1's time goes: the 8 copies of the slowest pair alone (about
+    # the 400's time if each block's chain of dependent steps sets it, far
+    # less if the SMs' issue does), and the rows pinned in global memory.
+    slow = ref["distance"].index(max(ref["distance"]))
+    pair_args = tensors([(hifi.patterns[slow], hifi.texts[slow])] * HIFI_REPS,
+                        nw=hifi_args[0].shape[1])
+    engine_cuda.align_batch_cuda(cfg, *pair_args)      # warm-up
+    k1_pair_ms, pair_out = cuda_ms(
+        lambda: engine_cuda.align_batch_cuda(cfg, *pair_args), 5)
+    require(pair_out["distance"].tolist() == [ref["distance"][slow]] * HIFI_REPS,
+            f"HiFi pair {slow}: K1 distances differ from the stored reference")
+    k1_global_ms, gout = cuda_ms(
+        lambda: engine_cuda.align_batch_cuda(cfg, *hifi_args, _rows="global"), 5)
+    require(torch.equal(gout["distance"], out["distance"])
+            and torch.equal(gout["finished"], out["finished"]),
+            "HiFi: K1 with the rows in global memory differs")
+    k1_occ = engine_cuda.blocks_per_sm(cfg, hifi_args[0].shape[1], dev)
 
     opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=3000,
                             band=25, band_width=512, backend="cuda")
@@ -416,7 +466,10 @@ def main() -> int:
     require(all(r.finished_on_accelerator for r in res),
             "HiFi: align_pairs left pairs to the CPU")
     phase("hifi", t0,
-          f"{n} pairs: K1 {k1_ms:.3f} ms ({n / k1_ms * 1e3:.1f} aln/s), "
+          f"{n} pairs: K1 {k1_ms:.3f} ms ({n / k1_ms * 1e3:.1f} aln/s; pair "
+          f"{slow} x{HIFI_REPS} alone {k1_pair_ms:.3f} ms; the rows in global "
+          f"memory {k1_global_ms:.3f} ms; {k1_occ[0]} blocks of {k1_occ[1]} "
+          "threads an SM), "
           f"plain {k1_plain_ms:.3f} ms ({n / k1_plain_ms * 1e3:.1f} aln/s), "
           f"align_pairs {e2e_s * 1e3:.3f} ms ({n / e2e_s:.1f} aln/s), "
           f"launches {dict(engine_cuda.LAUNCHES)}; [{smi}]")
@@ -457,9 +510,31 @@ def main() -> int:
         n_cases += 1
         n_lanes += len(pairs)
         n_walks += int((want[:, 2] > 0).sum())
+    n_long = 0
+    for band, pen, w in long_cases:
+        ccfg, tb = cigar_configs(pen, 200, w, band)
+        plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *long_args)
+        want = fused_plain(tb, plain, long_args)
+        for rows in ("shared", "global"):
+            for nt in (512, 1024) if band < 0 else (0,):
+                pin = dict(_rows=rows, _threads=nt)
+                tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *long_args,
+                                                       **pin)
+                fused = engine_cuda.align_cigar_cuda(ccfg, tb, *long_args, **pin)
+                what = f"band={band} pen={pen} W={w} rows={rows} threads={nt}"
+                require(torch.equal(tables["finished"], plain["finished"])
+                        and torch.equal(tables["distance"], plain["distance"]),
+                        f"long runs: K2 distances differ: {what}")
+                require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables,
+                                                  cone=True),
+                        f"long runs: K2 choice table differs: {what}")
+                require(torch.equal(fused, want), f"long runs: K2 + K3 rows differ: {what}")
+                n_long += 1
+        n_walks += int((want[:, 2] > 0).sum())
     phase("k2k3-vs-plain", t0, f"{n_cases} cases, {n_lanes} lanes, {n_walks} "
           "walks: distances, flags, n_ops and op streams equal; tables equal "
-          "on the readable region")
+          f"on the readable region; long runs: {n_long} launches of K2 + K3 "
+          "over both row placements (x 512 and 1024 threads exact), equal")
 
     # ---- 7. CIGAR goldens through align_pairs(compute_cigar=True) ----
     t0 = time.perf_counter()
@@ -521,6 +596,16 @@ def main() -> int:
     k3_ms, _ = cuda_ms(lambda: engine_cuda.traceback_cuda(
         tb, tables["choice_words"], tables["lo_trace"], tables["distance"],
         tables["finished"], tk), 5)
+    k2_pair_ms, pair_tab = cuda_ms(
+        lambda: engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *pair_args), 5)
+    require(pair_tab["distance"].tolist() == [ref["distance"][slow]] * HIFI_REPS,
+            f"HiFi pair {slow}: K2 distances differ from the stored reference")
+    k2_global_ms, gtab = cuda_ms(lambda: engine_cuda.cigar_tables_cuda(
+        ccfg, tb.score_cap, *hifi_args, _rows="global"), 5)
+    require(torch.equal(gtab["distance"], tables["distance"]),
+            "HiFi: K2 with the rows in global memory differs")
+    k2_occ = engine_cuda.blocks_per_sm(ccfg, hifi_args[0].shape[1], dev, cigar=True)
+    del pair_tab
     arr = fused.cpu().numpy()
     require(bool((arr[:, 1] != 0).all()), "HiFi CIGAR: unfinished pairs on K2")
     require(bool((arr[:, 2] > 0).all()), "HiFi CIGAR: corrupt or missing walks")
@@ -541,8 +626,10 @@ def main() -> int:
         tables["distance"] - plain["distance"]).abs().max().item())
     max_err["wfa_traceback"] = max(
         max_err["wfa_traceback"], (fused - want).abs().max().item())
-    require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables),
+    require(engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables)
+            and engine_torch.tables_equal(ccfg, tb.score_cap, plain, gtab),
             "HiFi CIGAR: K2 table differs on the readable region")
+    del gtab
 
     copts = AlignmentOptions(penalties=pen, max_error=3000, band=25,
                              band_width=512, compute_cigar=True, backend="cuda")
@@ -583,14 +670,51 @@ def main() -> int:
                         walk_steps * OPS_PER_WALK_STEP)
     phase("hifi-cigar", t0,
           f"{n} pairs: K2+K3 {k2k3_ms:.3f} ms ({n / k2k3_ms * 1e3:.1f} aln/s; "
-          f"K2 {k2_ms:.3f}, K3 {k3_ms:.3f}), plain K2+K3 "
+          f"K2 {k2_ms:.3f} (pair {slow} x{HIFI_REPS} alone {k2_pair_ms:.3f}; the "
+          f"rows in global memory {k2_global_ms:.3f}; {k2_occ[0]} blocks of "
+          f"{k2_occ[1]} threads an SM), K3 {k3_ms:.3f}), plain K2+K3 "
           f"{k2_plain_ms + k3_plain_ms:.3f} ms (K2 {k2_plain_ms:.3f}, K3 "
           f"{k3_plain_ms:.3f}), align_pairs {ce2e_s * 1e3:.3f} ms "
           f"({n / ce2e_s:.1f} aln/s), launches {cigar_launches}; all on card, "
           f"no corrupt walk, CIGARs equal the reference x{HIFI_REPS}; "
           f"{cells} cells, {rows} choice rows, {walk_steps} walk steps; [{smi}]")
 
-    # ---- 9. K4 (the ring's edges in global memory) against the plain versions ----
+    # ---- 9. exact-1k: seq_1000_n1000 (exact, W=640) on K1 and K2 ----
+    t0 = time.perf_counter()
+    name, k1k, pen, me, gold1k = golden_runs[3]
+    require(name == "seq_1000_n1000", f"expected seq_1000_n1000, got {name}")
+    dopts = AlignmentOptions(penalties=pen, max_error=me, backend="cuda")
+    cfg1k, full1k, _, _, nw1k = route_config(k1k.patterns, k1k.texts, dopts)
+    ccfg1k, _, _, cap1k, _ = route_config(
+        k1k.patterns, k1k.texts, dataclasses.replace(dopts, compute_cigar=True))
+    require(not cfg1k.ring_global and cfg1k.wf_width == 640 and full1k,
+            f"seq_1000_n1000: expected K1 at W=640, got {cfg1k}")
+    args1k = tensors(list(zip(k1k.patterns, k1k.texts)), nw=nw1k)
+    rows1k = engine_cuda.rows_fit(pen.active_working_set, 640, nw1k, True, smem)
+    occ1k = {nt: engine_cuda.blocks_per_sm(cfg1k, nw1k, dev, _threads=nt)[0]
+             for nt in (512, 1024)}
+    k1_1k = threads_ms(
+        lambda n: engine_cuda.align_batch_cuda(cfg1k, *args1k, _threads=n))
+    k2_1k = threads_ms(
+        lambda n: engine_cuda.cigar_tables_cuda(ccfg1k, cap1k, *args1k, _threads=n))
+    for nt in (512, 1024):
+        got = engine_cuda.align_batch_cuda(cfg1k, *args1k, _threads=nt)
+        tab = engine_cuda.cigar_tables_cuda(ccfg1k, cap1k, *args1k, _threads=nt)
+        require(bool(got["finished"].all()) and got["distance"].tolist() == gold1k
+                and torch.equal(tab["distance"], got["distance"])
+                and bool(tab["finished"].all()),
+                f"seq_1000_n1000 at {nt} threads: K1/K2 distances differ from "
+                "the goldens")
+    del tab
+    phase("exact-1k", t0,
+          f"{len(gold1k)} pairs, W=640, rows {'shared' if rows1k else 'global'}: "
+          f"K1 {k1_1k[512]:.3f} ms at 512 threads ({occ1k[512]} blocks an SM), "
+          f"{k1_1k[1024]:.3f} ms at 1024 (640 at W=640; {occ1k[1024]} blocks an "
+          f"SM), default {engine_cuda.blocks_per_sm(cfg1k, nw1k, dev)[1]} threads; "
+          f"K2 {k2_1k[512]:.3f} ms at 512, {k2_1k[1024]:.3f} ms at 1024; "
+          f"distances equal the goldens; [{smi}]")
+
+    # ---- 10. K4 (the ring's edges in global memory) against the plain versions ----
     t0 = time.perf_counter()
     n_cases = n_lanes = n_same = n_cross = 0
     # (pen, W, pinned centre or None, threads or 0): the pinned centres are
@@ -647,7 +771,7 @@ def main() -> int:
           f"global edges; equal to K1/K2 on the {n_same} cases a shared ring "
           "holds")
 
-    # ---- 10. wide10k: seq_10K_n100 at max_error 3000, exact, on K4 ----
+    # ---- 11. wide10k: seq_10K_n100 at max_error 3000, exact, on K4 ----
     t0 = time.perf_counter()
     pen = Penalties(2, 3, 1)
     w10 = read_seq_file(DATA / "seq_10K_n100.seq")
@@ -683,7 +807,13 @@ def main() -> int:
     cfg_cut = dataclasses.replace(cfg10, wf_width=cut, ring_global=False,
                                   score_limit=pen.o + pen.e * (cut // 2 + 1))
     cfg_cut4 = dataclasses.replace(cfg_cut, ring_global=True)
+    # Warm-up: the first launch of an instantiation also loads it.
+    engine_cuda.align_batch_cuda(cfg_cut, *args10)
+    engine_cuda.align_batch_cuda(cfg_cut4, *args10)
     k1_cut_ms, k1_cut = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg_cut, *args10), 3)
+    k1_cut_threads = threads_ms(
+        lambda n: engine_cuda.align_batch_cuda(cfg_cut, *args10, _threads=n))
+    rows_cut = engine_cuda.rows_fit(pen.active_working_set, cut, nw10, False, smem)
     k4_cut_ms, k4_cut = cuda_ms(lambda: engine_cuda.align_batch_cuda(cfg_cut4, *args10), 3)
     require(torch.equal(k1_cut["distance"], k4_cut["distance"])
             and torch.equal(k1_cut["finished"], k4_cut["finished"]),
@@ -761,7 +891,9 @@ def main() -> int:
           f"whole ring {WHOLE_RING_MS['wide10k']} ms), plain "
           f"{k4_plain_ms:.3f} ms; {work_line(work10, k4_cells, centre10)}; "
           f"at W={cut}, cut at its certificate: "
-          f"K1 {k1_cut_ms:.3f} ms, K4 {k4_cut_ms:.3f} ms, equal; "
+          f"K1 {k1_cut_ms:.3f} ms (512 threads {k1_cut_threads[512]:.3f}, 1024 "
+          f"threads {k1_cut_threads[1024]:.3f}; rows "
+          f"{'shared' if rows_cut else 'global'}), K4 {k4_cut_ms:.3f} ms, equal; "
           f"align_pairs {w10_s * 1e3:.3f} ms "
           f"({n10 / w10_s:.1f} aln/s), all on card, distances equal the "
           f"goldens; CIGAR: K4 tables {k4c_ms:.3f} ms (1024 threads "
@@ -773,7 +905,7 @@ def main() -> int:
           f"the plain route's on 16 pairs ({route_plain_s:.2f}s); "
           f"launches {k4c_launches}; [{smi}]")
 
-    # ---- 11. ring-wide: 16 x 5 kbp at 50% substitution, exact, on K4 ----
+    # ---- 12. ring-wide: 16 x 5 kbp at 50% substitution, exact, on K4 ----
     t0 = time.perf_counter()
     rw = ring_wide_pairs()
     rw_p = [p for p, _ in rw]
@@ -827,7 +959,7 @@ def main() -> int:
           f"{least}..{max(r.error for r in res)}, CPU oracle equal on pairs "
           f"0 and 8; [{smi}]")
 
-    # ---- 12. ring-bw: K4's ring-row traffic (4 rows in, 3 out per step) ----
+    # ---- 13. ring-bw: K4's ring-row traffic (4 rows in, 3 out per step) ----
     t0 = time.perf_counter()
     for shape, steps in (((4, 15, 1024), 64), ((100, 15, 6016), 16)):
         start = torch.randint(-1000, 1000, shape, dtype=torch.int32, device=dev)
@@ -869,7 +1001,7 @@ def main() -> int:
         for p in probes) + f"; plain (B=1056, 2048 steps) {bw_plain_ms:.3f} ms; "
         f"[{smi}]")
 
-    # ---- 13. calibrate: the speed-of-light kernels and the wide gather ----
+    # ---- 14. calibrate: the speed-of-light kernels and the wide gather ----
     t0 = time.perf_counter()
     sol = sol_calibrate
     rng = np.random.default_rng(20261016)
@@ -993,7 +1125,7 @@ def main() -> int:
           f"-{100e-3 * floor_us[1] / k1_ms:.1f}% of K1's {k1_ms:.3f} ms"
           f"; launches {cal_launches}; [{smi}]")
 
-    # ---- 14. profile: the CLI's --profile trace names K1 ----
+    # ---- 15. profile: the CLI's --profile trace names K1 ----
     t0 = time.perf_counter()
     trace_dir = ROOT / "build" / "profile"
     proc = subprocess.run(
@@ -1006,7 +1138,8 @@ def main() -> int:
     events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     k1 = [e for e in kernels
-          if re.search(r"wfa_kernel<(true|false), false, false>", e["name"])]
+          if re.search(r"wfa_kernel<(true|false), false, false, (true|false)>",
+                       e["name"])]
     require(len(k1) > 0, f"the --profile trace names no K1 kernel "
             f"({len(kernels)} kernel events)")
     phase("profile", t0, f"trace.json: {len(events)} events, {len(kernels)} "

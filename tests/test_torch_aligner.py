@@ -8,6 +8,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import wfa_tpu
 import wfa_tpu_torch
@@ -16,6 +17,10 @@ from wfa_tpu.utils.io import read_seq_file
 from wfa_tpu_torch import AlignmentOptions, Penalties
 from wfa_tpu_torch.aligner import _TierPlan, _tier_geometry_cuda
 from wfa_tpu_torch.ops import engine_cuda, engine_torch
+
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
 
 DATA = Path(__file__).parent / "data"
 H100_SMEM = 232448  # bytes a block may opt in to on an H100

@@ -23,6 +23,10 @@ from jax.experimental.pallas import tpu as pltpu
 
 from wfa_tpu_torch.ops import gather_probe, sol_calibrate
 
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parent.parent
 # The two settings benchmarks/sol_calibrate.py changes when imported.
 _CONFIG = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs")

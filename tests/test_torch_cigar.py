@@ -44,6 +44,10 @@ from wfa_tpu_torch.utils.verification import affine_score, check_cigar
 
 from test_engine import make_pairs
 
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
+
 DATA = Path(__file__).parent / "data"
 
 

@@ -10,6 +10,10 @@ import torch
 from wfa_tpu.cli import main as tpu_main
 from wfa_tpu_torch.cli import main
 
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parent.parent
 DATA = ROOT / "tests" / "data"
 

@@ -19,6 +19,10 @@ from wfa_tpu_torch.ops.packing import pack_batch
 from wfa_tpu_torch.schedule import build_schedule, cone_radii
 from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs
 
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
+
 H100_SMEM = 232448  # bytes a block may opt in to on an H100
 
 

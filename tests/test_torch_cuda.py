@@ -1,7 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card.
 
 K1 (wfa_tpu_torch/ops/csrc/wfa_distance.cu): ``distance`` and ``finished``
-equal in every lane.  K2 (the same source, CIGAR mode): distances and flags
+equal in every lane, also on near-identical kbp pairs whose runs the
+warp-cooperative extension serves, with the packed rows in shared and in
+global memory and, exact, at 512 and 1024 threads; with a ``score_cap``
+above every distance K1 and K2 equal their uncapped runs.  K2 (the same source, CIGAR mode): distances and flags
 equal, and the choice table and ``lo_trace`` equal wherever a backward walk
 can read them (``engine_torch.tables_equal``; exact tables on the cone).
 K3 (wfa_tpu_torch/ops/csrc/wfa_traceback.cu): the fused rows (distance,
@@ -30,7 +33,11 @@ from wfa_tpu_torch.ops import (
 from wfa_tpu_torch.ops.packing import pack_batch
 from wfa_tpu_torch.schedule import build_schedule
 from wfa_tpu_torch.types import Penalties
-from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs
+from wfa_tpu_torch.utils.synth import EDGE_PAIRS, long_run_pairs, random_pairs
+
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
 
 pytestmark = pytest.mark.cuda
 
@@ -71,6 +78,75 @@ def test_kernel_equals_plain_version(device, band, pen, width):
     want = engine_torch.align_batch_device(cfg, *args)
     assert torch.equal(got["finished"], want["finished"])
     assert torch.equal(got["distance"], want["distance"])
+
+
+@pytest.mark.parametrize(
+    "band,pen,width",
+    [(-1, Penalties(2, 3, 1), 1024), (25, Penalties(2, 3, 1), 512),
+     (10, Penalties(4, 1, 2), 256)],
+)
+def test_long_runs_both_placements_equal_plain_version(device, band, pen, width):
+    """K1 and K2 + K3 on near-identical 2-5 kbp pairs (runs past 512 bases,
+    to either end, homopolymers), the rows pinned in shared and in global
+    memory; exact also at 512 and 1024 threads a block."""
+    rng = np.random.default_rng(width + band)
+    args = _tensors(EDGE_PAIRS + long_run_pairs(rng, 24), device, invalid_every=13)
+    cfg = engine_torch.EngineConfig(pen, 200, width, band)
+    ccfg, tb = _cigar_configs(pen, 200, width, band)
+    want = engine_torch.align_batch_device(cfg, *args)
+    plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
+    fused = traceback_torch.align_cigar_fused(ccfg, tb, *args)
+    for rows in ("shared", "global"):
+        for threads in (512, 1024) if band < 0 else (0,):
+            pin = dict(_rows=rows, _threads=threads)
+            before = dict(engine_cuda.LAUNCHES)
+            got = engine_cuda.align_batch_cuda(cfg, *args, **pin)
+            tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args, **pin)
+            rows_out = engine_cuda.align_cigar_cuda(ccfg, tb, *args, **pin)
+            torch.cuda.synchronize()
+            assert engine_cuda.LAUNCHES["rows_" + rows] == before["rows_" + rows] + 3
+            assert torch.equal(got["distance"], want["distance"])
+            assert torch.equal(got["finished"], want["finished"])
+            assert torch.equal(tables["distance"], want["distance"])
+            assert engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables,
+                                             cone=True)
+            assert torch.equal(rows_out, fused)
+
+
+@pytest.mark.parametrize("band,width", [(-1, 256), (-1, 1024), (10, 128), (25, 512)])
+def test_score_cap_above_every_distance_changes_nothing(device, band, width):
+    """K1 and K2 with a score cap above every distance equal their uncapped
+    runs: distances, finished flags and every choice nibble a walk reads."""
+    pen = Penalties(2, 3, 1)
+    rng = np.random.default_rng(width - band)
+    args = _tensors(EDGE_PAIRS + random_pairs(rng, 64, 10, 300, max_err=0.1,
+                                              empty_rate=0.0),
+                    device, invalid_every=11)
+    full = engine_torch.EngineConfig(pen, 300, width, band)
+    ucfg, utb = _cigar_configs(pen, 300, width, band)
+    free = engine_cuda.align_batch_cuda(full, *args)
+    utables = engine_cuda.cigar_tables_cuda(ucfg, utb.score_cap, *args)
+    dist = free["distance"]
+    assert int(dist.max()) < utb.score_cap - 1     # no lane ran out of steps
+    cap = int(dist.max()) + 10
+    capped = engine_cuda.align_batch_cuda(
+        dataclasses.replace(full, score_limit=cap - 1), *args)
+    ccfg = dataclasses.replace(ucfg, score_limit=cap - 1)
+    ctables = engine_cuda.cigar_tables_cuda(ccfg, cap, *args)
+    torch.cuda.synchronize()
+    for out in (capped, ctables, utables):
+        assert torch.equal(out["distance"], dist)
+        assert torch.equal(out["finished"], free["finished"])
+    plain = engine_torch.cigar_tables(ccfg, cap, *args)
+    mask, lo_mask = engine_torch.readable_masks(ccfg, cap, plain, cone=True)
+    rows = ctables["choice_words"].shape[0]
+    a = ctables["choice_words"].long()
+    b = utables["choice_words"][:rows].long()
+    assert not bool(((a ^ b) & mask).any())
+    if band > 0:
+        lo = ctables["lo_trace"][:, : lo_mask.shape[1]]
+        assert torch.equal(lo[lo_mask], utables["lo_trace"][:, : lo_mask.shape[1]][lo_mask])
+    assert engine_torch.tables_equal(ccfg, cap, plain, ctables, cone=True)
 
 
 def test_kernel_refuses_what_it_cannot_run(device):
@@ -233,7 +309,7 @@ def test_k4_refuses_a_band(device):
         *(t.data_ptr() for t in args[:2]), nw,
         *(t.data_ptr() for t in args[2:]), sched.data_ptr(), num_steps,
         unfinished, 5, 128, 25, dist.data_ptr(), fin.data_ptr(),
-        edges.data_ptr(), 64, 0, B, device.index,
+        edges.data_ptr(), 64, 1, 0, B, device.index,
         torch.cuda.current_stream(device).cuda_stream,
     )
     assert rc != 0

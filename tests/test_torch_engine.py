@@ -6,6 +6,8 @@ engine, ``distance`` and ``finished`` are equal in every lane, unfinished and
 invalid lanes included; against the Pallas kernel (interpret mode) on
 ``finished`` and ``distance[finished]``, as tests/test_pallas.py compares it.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,10 @@ from wfa_tpu_torch.ops import engine_cuda, engine_torch
 from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs
 
 from test_engine import make_pairs
+
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
 
 
 def _pack(pairs, nwords):
@@ -94,6 +100,27 @@ def test_twin_matches_xla_truncated_score_limit():
     np.testing.assert_array_equal(ft, fx)
     np.testing.assert_array_equal(dt, dx)
     assert (~fx).sum() >= 4
+
+
+@pytest.mark.parametrize("band", [-1, 10], ids=["exact", "banded"])
+def test_score_cap_above_every_distance_matches_xla(band):
+    """A score cap above every distance (as in the reference's report: cap
+    100, distances up to 58) changes nothing: the plain engine and the XLA
+    engine under the cap equal each other and their uncapped runs, in
+    distance and finished flag, in every lane."""
+    rng = np.random.default_rng(100 + band)
+    pairs = EDGE_PAIRS + random_pairs(rng, 24, 10, 200, 0.1, empty_rate=0.0)
+    free = XlaConfig(
+        penalties=Penalties(2, 3, 1), max_steps=200, wf_width=128,
+        compute_cigar=False, band=band,
+    )
+    (dx, fx), (dt, ft) = _run_both(pairs, free)
+    assert dt.max() < 150 and ft.sum() >= 20     # no lane ran out of steps
+    capped = dataclasses.replace(free, score_limit=int(dt.max()) + 9)
+    (dxc, fxc), (dtc, ftc) = _run_both(pairs, capped)
+    for d, f in ((dx, fx), (dtc, ftc), (dxc, fxc)):
+        np.testing.assert_array_equal(f, ft)
+        np.testing.assert_array_equal(d, dt)
 
 
 @pytest.mark.parametrize("band", [-1, 10], ids=["exact", "banded"])

@@ -9,6 +9,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import wfa_tpu.aligner as tpu_aligner
 import wfa_tpu.cli as tpu_cli
@@ -36,6 +37,10 @@ from wfa_tpu_torch.ops import packing
 from wfa_tpu_torch.schedule import build_schedule
 from wfa_tpu_torch.types import MAX_SEQ_LEN, OFFSET_NULL, AffineOp, Penalties
 from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs
+
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
 
 DATA = Path(__file__).parent / "data"
 PENALTIES = [(2, 3, 1), (1, 0, 1), (4, 1, 2), (70, 6, 2)]

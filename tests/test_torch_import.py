@@ -16,13 +16,17 @@ from wfa_tpu_torch import AlignmentOptions
 from wfa_tpu_torch.ops import _build
 from wfa_tpu_torch.utils.io import read_seq_file
 
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
+
 ROOT = Path(__file__).resolve().parent.parent
 # The port, and the scripts that run it on the card (the tools that write
 # reference files from wfa_tpu import it on purpose).
 PORT_FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_stage_times.py",
     ROOT / "tools" / "torch_ring_bw.py", ROOT / "tools" / "torch_sol_calibrate.py",
-    ROOT / "tools" / "torch_gather_probe.py",
+    ROOT / "tools" / "torch_gather_probe.py", ROOT / "tools" / "torch_k1k2_times.py",
 ]
 
 

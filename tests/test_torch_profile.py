@@ -11,6 +11,10 @@ import torch
 from wfa_tpu_torch.cli import main
 from wfa_tpu_torch.utils.timers import device_trace
 
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
+
 DATA = Path(__file__).resolve().parent / "data"
 
 

@@ -34,6 +34,10 @@ from wfa_tpu_torch.utils.synth import ring_wide_pairs
 
 from test_engine import make_pairs
 
+# Several test processes share the machine's cores with jax's; two
+# intra-op threads each keep them from crowding one another.
+torch.set_num_threads(2)
+
 H100_SMEM = 232448  # bytes a block may opt in to on an H100
 
 

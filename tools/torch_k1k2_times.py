@@ -1,0 +1,210 @@
+#!/usr/bin/env python3
+"""Times K1 and K2 (wfa_tpu_torch/ops/csrc/wfa_distance.cu) with CUDA events.
+
+    python3 tools/torch_k1k2_times.py [--root DIR] [--rounds N]
+
+Needs one NVIDIA GPU and nvcc; imports no jax.  ``--root`` imports
+``wfa_tpu_torch`` from another checkout of the repository (an earlier commit
+unpacked with ``git archive``), whose kernels then build into that
+checkout's ``build/cuda/``: to compare two versions, run the script once
+per checkout, in turns, on the same card.  Each time is the mean of
+5 launches after a warm-up, taken ``--rounds`` times in turn.  Prints one
+JSON object: the card (``nvidia-smi`` name and power limit), the tree, and
+lists of ms:
+
+- ``hifi_k1``, ``hifi_k2``: the HiFi workload, 400 pairs (the 50 of
+  ``tests/data/test_hifi.seq`` x 8), W=512, band 25, penalties (2,3,1),
+  max_steps 3000, as ``chip_smoke.py`` phases hifi and hifi-cigar time it;
+  ``hifi_k1_256``, ``hifi_k2_256`` at 256 threads a block (two diagonals a
+  thread);
+- ``pair30_k1``, ``pair30_k2``: the 8 copies of pair 30 (distance 426, the
+  slowest) alone: about as long as the 400 when each block's chain of
+  dependent steps sets the time, much shorter when the SMs' issue does;
+- ``exact1k_k1_T``, ``exact1k_k2_T``: ``seq_1000_n1000`` at max_error 300
+  (exact, W=640, as ``align_pairs`` plans it) at T = 512 and 1024 threads a
+  block (null where the kernel refuses T);
+- ``w3840_k1_T``, ``w3840_k4``: ``seq_10K_n100`` at the widest window a
+  shared ring holds (3840 at A=5), the loop stopped at its certificate, on
+  K1 at T threads and on K4;
+- ``wide10k_k4``, ``wide10k_k4_cigar``, ``ringwide_k4``: K4, which shares
+  the extension, on ``seq_10K_n100`` at max_error 3000 (W=6016) in both
+  modes and on the ring-wide set (16 x 5 kbp, W=9216), as ``align_pairs``
+  plans them;
+- with ``_rows`` on the wrappers, the HiFi times with the rows pinned in
+  global memory (``hifi_k1_rows_global``, ``hifi_k2_rows_global``);
+- with ``engine_cuda.blocks_per_sm``, ``blocks_per_sm``: the blocks one SM
+  holds at once and their threads, for the default launches above.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import inspect
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", type=Path, default=ROOT)
+    ap.add_argument("--rounds", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_k1k2_times: no CUDA device", file=sys.stderr)
+        return 2
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import numpy as np
+
+    from wfa_tpu_torch import AlignmentOptions, Penalties, aligner
+    from wfa_tpu_torch.ops import engine_cuda, engine_torch
+    from wfa_tpu_torch.ops.packing import pack_batch
+    from wfa_tpu_torch.schedule import build_schedule
+    from wfa_tpu_torch.utils.io import read_seq_file
+    from wfa_tpu_torch.utils.synth import ring_wide_pairs
+
+    dev = torch.device("cuda", 0)
+    data = root / "tests" / "data"
+    pen = Penalties(2, 3, 1)
+    smem = engine_cuda.smem_optin(dev)
+
+    def tensors(pairs, nw=None):
+        if nw is None:
+            nw = max(max(len(p), len(t)) for p, t in pairs) // 16 + 2
+        pat, plen, vp = pack_batch([p for p, _ in pairs], nw)
+        txt, tlen, vt = pack_batch([t for _, t in pairs], nw)
+        return engine_torch.batch_to_tensors(pat, plen, txt, tlen, vp & vt, dev)
+
+    def cuda_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def route(pairs, opts):
+        lens = np.array([max(len(p), len(t)) for p, t in pairs])
+        (plan,) = aligner._plan_tiers(lens, opts, opts.max_error)
+        cfg, _, _, cap = aligner._tier_geometry_cuda(plan, opts, opts.max_error,
+                                                     -1, smem)
+        return cfg, cap, plan.nwords
+
+    def cigar_cfg(cfg, max_steps):
+        cap = build_schedule(cfg.penalties, max_steps, None).unfinished_score + 1
+        return dataclasses.replace(cfg, score_limit=cap - 1, compute_cigar=True), cap
+
+    hifi = read_seq_file(data / "test_hifi.seq")
+    hifi_pairs = list(zip(hifi.patterns, hifi.texts))
+    ref = json.loads((data / "hifi_banded_w512_b25.json").read_text())["distance"]
+    slow = ref.index(max(ref))
+    hifi_args = tensors(hifi_pairs * 8)
+    pair_args = tensors([hifi_pairs[slow]] * 8, nw=hifi_args[0].shape[1])
+    band_cfg = engine_torch.EngineConfig(pen, 3000, 512, 25)
+    band_ccfg, band_cap = cigar_cfg(band_cfg, 3000)
+
+    k1k = read_seq_file(data / "seq_1000_n1000.seq")
+    k1k_pairs = list(zip(k1k.patterns, k1k.texts))
+    k1k_cfg, _, k1k_nw = route(k1k_pairs, AlignmentOptions(
+        penalties=pen, max_error=300, backend="cuda"))
+    k1k_ccfg, k1k_cap, _ = route(k1k_pairs, AlignmentOptions(
+        penalties=pen, max_error=300, backend="cuda", compute_cigar=True))
+    k1k_args = tensors(k1k_pairs, nw=k1k_nw)
+
+    w10 = read_seq_file(data / "seq_10K_n100.seq")
+    w10_pairs = list(zip(w10.patterns, w10.texts))
+    w10_cfg, _, w10_nw = route(w10_pairs, AlignmentOptions(
+        penalties=pen, max_error=3000, backend="cuda"))
+    cut = engine_cuda.max_width(pen.active_working_set, smem)
+    cut_cfg = dataclasses.replace(w10_cfg, wf_width=cut, ring_global=False,
+                                  score_limit=pen.o + pen.e * (cut // 2 + 1))
+    w10_args = tensors(w10_pairs, nw=w10_nw)
+    w10_ccfg, w10_cap, _ = route(w10_pairs, AlignmentOptions(
+        penalties=pen, max_error=3000, backend="cuda", compute_cigar=True))
+    rw_pairs = ring_wide_pairs()
+    rw_cfg, _, rw_nw = route(rw_pairs, AlignmentOptions(
+        penalties=pen, max_error=4600, backend="cuda", cpu_fallback=False))
+    rw_args = tensors(rw_pairs, nw=rw_nw)
+
+    K1, K2 = engine_cuda.align_batch_cuda, engine_cuda.cigar_tables_cuda
+    runs = {
+        "hifi_k1": lambda: K1(band_cfg, *hifi_args),
+        "hifi_k2": lambda: K2(band_ccfg, band_cap, *hifi_args),
+        "pair30_k1": lambda: K1(band_cfg, *pair_args),
+        "pair30_k2": lambda: K2(band_ccfg, band_cap, *pair_args),
+        "hifi_k1_256": lambda: K1(band_cfg, *hifi_args, _threads=256),
+        "hifi_k2_256": lambda: K2(band_ccfg, band_cap, *hifi_args, _threads=256),
+        "w3840_k4": lambda: K1(dataclasses.replace(cut_cfg, ring_global=True),
+                               *w10_args),
+        "wide10k_k4": lambda: K1(w10_cfg, *w10_args),
+        "wide10k_k4_cigar": lambda: K2(w10_ccfg, w10_cap, *w10_args),
+        "ringwide_k4": lambda: K1(rw_cfg, *rw_args),
+    }
+    for t in (512, 1024):
+        runs[f"exact1k_k1_{t}"] = lambda t=t: K1(k1k_cfg, *k1k_args, _threads=t)
+        runs[f"exact1k_k2_{t}"] = lambda t=t: K2(k1k_ccfg, k1k_cap, *k1k_args,
+                                                 _threads=t)
+        runs[f"w3840_k1_{t}"] = lambda t=t: K1(cut_cfg, *w10_args, _threads=t)
+    if "_rows" in inspect.signature(K1).parameters:
+        runs["hifi_k1_rows_global"] = lambda: K1(band_cfg, *hifi_args, _rows="global")
+        runs["hifi_k2_rows_global"] = lambda: K2(band_ccfg, band_cap, *hifi_args,
+                                                 _rows="global")
+
+    # Every run's distances must equal the first run's of its workload.
+    want = {}
+    times = {name: [] for name in runs}
+    for _ in range(args.rounds):
+        for name, fn in runs.items():
+            try:
+                times[name].append(cuda_ms(fn))
+            except RuntimeError:
+                if not name.endswith("_1024"):
+                    raise
+                times[name] = None     # an earlier K1/K2 takes at most 512
+                continue
+            out = fn()
+            key = name.split("_")[0]
+            got = (out["distance"].cpu(), out["finished"].cpu())
+            ref_out = want.setdefault(key, got)
+            if not (torch.equal(got[0], ref_out[0]) and torch.equal(got[1], ref_out[1])):
+                raise SystemExit(f"torch_k1k2_times: {name} differs from its workload's first run")
+        runs = {k: v for k, v in runs.items() if times[k] is not None}
+    hifi_dist = want["hifi"][0].tolist()
+    if hifi_dist != ref * 8:
+        raise SystemExit("torch_k1k2_times: HiFi distances differ from the reference")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    occupancy = {}
+    if hasattr(engine_cuda, "blocks_per_sm"):
+        for name, cfg, nw, cigar, *threads in (
+            ("hifi_k1", band_cfg, hifi_args[0].shape[1], False),
+            ("hifi_k2", band_ccfg, hifi_args[0].shape[1], True),
+            ("hifi_k1_256", band_cfg, hifi_args[0].shape[1], False, 256),
+            ("hifi_k2_256", band_ccfg, hifi_args[0].shape[1], True, 256),
+            ("exact1k_k1", k1k_cfg, k1k_nw, False),
+            ("exact1k_k2", k1k_ccfg, k1k_nw, True),
+            ("w3840_k1", cut_cfg, w10_nw, False),
+            ("wide10k_k4", w10_cfg, w10_nw, False),
+            ("wide10k_k4_cigar", w10_ccfg, w10_nw, True),
+        ):
+            occupancy[name] = engine_cuda.blocks_per_sm(cfg, nw, dev, cigar=cigar,
+                                                        _threads=threads[0] if threads else 0)
+    print(json.dumps({"card": card, "root": str(root), "ms": times,
+                      "blocks_per_sm": occupancy}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -221,13 +221,17 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
         plan, opts, max_error, band, smem
     )
     cigar = opts.compute_cigar
-    # K4's edges: what the ring's centre in shared memory leaves over.
+    # K4's edges: what the ring's centre in shared memory leaves over.  K4
+    # stages the packed rows; K1/K2 where they fit beside the ring.
+    A = opts.penalties.active_working_set
     ring = 0
+    rows = "shared"
     if cfg.ring_global:
-        A = opts.penalties.active_working_set
         centre = engine_cuda.centre_width(A, cfg.wf_width, plan.nwords, cigar,
                                           smem)
         ring = engine_cuda.ring_bytes(A, cfg.wf_width, centre)
+    elif not engine_cuda.rows_fit(A, cfg.wf_width, plan.nwords, cigar, smem):
+        rows = "global"
     if cigar:
         tb_cfg = TracebackConfig(
             penalties=opts.penalties, wf_width=cfg.wf_width,
@@ -238,9 +242,9 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
     else:
         call_b = _distance_call_batch(opts, ring)
     LOG.debug(
-        "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s "
+        "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s rows=%s "
         "score_cap=%d call_b=%d full_window=%s cert_bound=%d", plan.tier,
-        len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, score_cap,
+        len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, rows, score_cap,
         call_b, full_window, cert_bound,
     )
     for start in range(0, len(idxs), call_b):

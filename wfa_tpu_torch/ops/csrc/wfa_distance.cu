@@ -17,8 +17,12 @@
 //
 // Design: one thread block per alignment, diagonals across threads.  The
 // [3A, W] M/I/D ring (rows: M of slots 0..A-1, then I, then D) and the
-// per-slot window base/extent live in dynamic shared memory; K1 and K2 read
-// the packed sequences from global memory (L2).  The control flow comes from
+// per-slot window base/extent live in dynamic shared memory.  Each block
+// copies its two packed rows into shared memory once (kSeqShared), each
+// followed by a zero word, when they fit beside the ring; the wrapper
+// decides from the shared memory a block may use (engine_cuda.rows_fit), and
+// where they do not (exact windows near engine_cuda.max_width) K1 and K2 read
+// them from global memory through the read-only path.  The control flow comes from
 // the host schedule (wfa_tpu_torch.schedule.build_schedule: score, out slot
 // and the three parent slots, -1 for a missing parent; cone_radii: the
 // step's cone radius and that of the slot's previous score), so the kernel
@@ -64,13 +68,30 @@
 // 0.  Rows past the distance, rows holding no scheduled score, and words
 // outside the cone are not written: no walk reads them.
 //
-// What bounds them on this card: the LCP extension of the one on-path
-// diagonal is serial and divergent (its warp loops while the other 31 lanes
-// idle), and every score pays a block-wide barrier; K2 adds one coalesced
-// store of the cone's words per 8 scores.  K4 adds the edge traffic, 28
-// bytes a cell of the edges, at the rate of L2 or of HBM
-// (tools/torch_ring_bw.py measures it for this access pattern).  Later work:
-// a warp-cooperative extension, several alignments per block, and for K4
+// The LCP extension.  Banded (K1, K2), it is warp-cooperative
+// (extend_warp): each lane compares the first 16 bases of its own diagonal;
+// the lanes whose run goes on are then served one at a time by the whole
+// warp, 32 words (512 bases) a round, so the on-path diagonal's long run
+// costs one or two rounds instead of one round per 16 bases while 31 lanes
+// idle.  A banded block computes one cell a thread a score, and the chain of
+// dependent steps a score costs sets its time, so the shorter chain pays.
+// Exact (K1, K2, K4), each lane extends its own diagonal alone (extend):
+// there a thread computes several cells a score, the SM's issue slots set
+// the time, and serving the warp's runs one by one costs more instructions
+// than it saves (measured on wide10k, ring-wide and at W=3840; PERF.md).
+// Banded, every lane of a warp therefore runs each pass of the diagonal
+// loop (lanes past the score's last diagonal recompute it and store
+// nothing).
+//
+// What bounds them on this card: banded, the chain of dependent steps a
+// score costs one block (parent reads, the recurrence, the extension, a
+// block-wide barrier) and the issue slots of the SM it shares with another
+// block, since the slowest alignment sets the launch's time; exact, the
+// SM's issue slots.  K2 adds one coalesced store of the cone's words per 8
+// scores.  K4 adds the edge traffic, 28 bytes a cell of the edges, at the
+// rate of L2 or of HBM (tools/torch_ring_bw.py measures it for this access
+// pattern).  Later work: the per-score work every banded thread repeats
+// (the window's bounds), several alignments per block, and for K4
 // thread-block clusters when a launch has fewer pairs than SMs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -87,26 +108,28 @@ namespace {
 
 using wfa::kNull;
 constexpr int kBig = 1 << 20;         // window bound standing in for a missing parent
-constexpr int kMaxThreads = 512;      // K1, K2
-constexpr int kMaxThreadsRing = 1024; // K4
+constexpr int kMaxThreadsBanded = 512;  // K1, K2 with a band
+constexpr int kMaxThreadsExact = 1024;  // K1, K2 exact, and K4
+constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 constexpr int kScratchInts = 66;      // argmin partials (2 per warp, <= 32 warps) + 2
 constexpr int kSchedCols = 7;         // score, out, mx, moe, ide, radius, previous radius
 constexpr int kCentreGranule = 32;    // K4's centre is a multiple of this
 
 // Shared-memory bytes for one block; wfa_tpu_torch.ops.engine_cuda.smem_bytes
 // holds the same formula.  K2 adds one choice row word per diagonal; K4
-// holds only the ring's centre (C diagonals) and the two packed rows.
+// holds only the ring's centre (C diagonals); the two packed rows, nw words
+// and a zero word each, where the block stages them (always for K4).
 __host__ __device__ inline size_t smem_bytes(int A, int W, bool cigar,
                                              bool ring_global, int centre,
-                                             int nw) {
+                                             int nw, bool seq_shared) {
   const size_t ring = 3 * static_cast<size_t>(A) * (ring_global ? centre : W);
-  const size_t seq = ring_global ? 2 * (static_cast<size_t>(nw) + 1) : 0;
+  const size_t seq = seq_shared ? 2 * (static_cast<size_t>(nw) + 1) : 0;
   return sizeof(int) * (ring + 2 * A + kScratchInts + (cigar ? W : 0) + seq);
 }
 
 // Word idx of a packed row; words past the row read as zero (the plain
-// version pads one zero word and clamps to it).  K4's rows are in shared
-// memory, each with that zero word at nw; K1/K2's in global memory.
+// version pads one zero word and clamps to it).  Rows staged in shared
+// memory carry that zero word at nw; rows in global memory are tested.
 template <bool kShared>
 __device__ __forceinline__ uint32_t word_at(const uint32_t* row, int nw, int idx) {
   if (kShared) return row[min(idx, nw)];
@@ -122,28 +145,89 @@ __device__ __forceinline__ uint32_t load16(const uint32_t* row, int nw, int pos)
                          word_at<kShared>(row, nw, idx), 2 * (pos & 15));
 }
 
-// LCP extension of offset off on diagonal k (engine_torch._extend).
+// Matching bases among the 16 at pattern position v and text position h
+// (each clamped to [0, its length]).  Bases past either end count as
+// mismatches (engine_torch._tail_mask), so at most plen - vc and tlen - hc
+// of the 16 match; __clz(0) == 32.
 template <bool kShared>
-__device__ int extend(int off, int k, const uint32_t* pat, const uint32_t* txt,
-                      int nw, int plen, int tlen) {
+__device__ __forceinline__ int match16(const uint32_t* pat, const uint32_t* txt,
+                                       int nw, int plen, int tlen, int v, int h) {
+  const int vc = min(max(v, 0), plen);
+  const int hc = min(max(h, 0), tlen);
+  const uint32_t diff = load16<kShared>(pat, nw, vc) ^ load16<kShared>(txt, nw, hc);
+  return min(__clz(static_cast<int>(diff)) >> 1, min(plen - vc, tlen - hc));
+}
+
+// LCP extension of offset off on diagonal k (engine_torch._extend), one
+// lane alone, 16 bases a round.
+template <bool kShared>
+__device__ __forceinline__ int extend(int off, int k, const uint32_t* pat,
+                                      const uint32_t* txt, int nw, int plen,
+                                      int tlen) {
   int v = off - k;
   int h = off;
   if (off < 0 || v > plen || h > tlen) return kNull;
   int acc = 0;
   bool active = v < plen && h < tlen;
   while (active) {
-    const int vc = min(max(v, 0), plen);
-    const int hc = min(max(h, 0), tlen);
-    const uint32_t diff = load16<kShared>(pat, nw, vc) ^ load16<kShared>(txt, nw, hc);
-    // Bases past either end count as mismatches (engine_torch._tail_mask),
-    // so at most plen - vc and tlen - hc of the 16 match; __clz(0) == 32.
-    const int eq = min(__clz(static_cast<int>(diff)) >> 1, min(plen - vc, tlen - hc));
+    const int eq = match16<kShared>(pat, txt, nw, plen, tlen, v, h);
     acc += eq;
     v += eq;
     h += eq;
     active = eq == 16 && v < plen && h < tlen;
   }
   return off + acc;
+}
+
+// The same extension, called by all 32 lanes of a warp together; a lane
+// with go == false takes part in the warp's rounds and its result is
+// meaningless.  Each lane compares its
+// first 16 bases alone.  Then each lane whose run goes on (16 equal, neither
+// end reached) is served in turn by the whole warp: lane i compares the 16
+// bases at 16 * i past the run's current end, and the first lane with fewer
+// than 16 equal ends the run (all 32 equal: 512 bases further, unless an end
+// is reached).  This is the sequential 16-base loop read 32 words at a time,
+// as engine_torch._extend reads _CHUNKS words at a time: a word counts only
+// if every earlier word matched in full, so the sums are the same.
+template <bool kShared>
+__device__ __forceinline__ int extend_warp(int off, int k, bool go,
+                                           const uint32_t* pat, const uint32_t* txt,
+                                           int nw, int plen, int tlen) {
+  const int lane = threadIdx.x & 31;
+  int v = off - k;
+  int h = off;
+  const bool invalid = off < 0 || v > plen || h > tlen;
+  int acc = 0;
+  bool more = false;
+  if (go && !invalid && v < plen && h < tlen) {
+    acc = match16<kShared>(pat, txt, nw, plen, tlen, v, h);
+    v += acc;
+    h += acc;
+    more = acc == 16 && v < plen && h < tlen;
+  }
+  for (unsigned pending = __ballot_sync(kFullWarp, more); pending;
+       pending &= pending - 1) {
+    const int src = __ffs(pending) - 1;
+    int sv = __shfl_sync(kFullWarp, v, src);
+    int sh = __shfl_sync(kFullWarp, h, src);
+    int run = 0;
+    for (;;) {
+      const int eq = match16<kShared>(pat, txt, nw, plen, tlen, sv + 16 * lane,
+                                      sh + 16 * lane);
+      const unsigned short_words = __ballot_sync(kFullWarp, eq != 16);
+      if (short_words) {
+        const int first = __ffs(short_words) - 1;
+        run += 16 * first + __shfl_sync(kFullWarp, eq, first);
+        break;
+      }
+      run += 512;
+      sv += 512;
+      sh += 512;
+      if (sv >= plen || sh >= tlen) break;
+    }
+    if (lane == src) acc += run;
+  }
+  return invalid ? kNull : off + acc;
 }
 
 // (offset, op) packed so that max() picks the larger offset, ties by op.
@@ -174,8 +258,17 @@ __device__ __forceinline__ void argmin_merge(int& v, int& j, int ov, int oj) {
   }
 }
 
-template <bool kBanded, bool kCigar, bool kRingGlobal>
-__global__ void __launch_bounds__(kRingGlobal ? kMaxThreadsRing : kMaxThreads)
+// Blocks of the most threads an SM must hold by registers (the second
+// argument of __launch_bounds__).  Exact K1/K2 with staged rows: two of 1024
+// threads, at most 32 registers a thread, as their narrow windows want many
+// resident blocks.  K4 and K1/K2 with the rows in global memory fill shared
+// memory, so an SM holds one block anyway.  Banded blocks take the registers
+// they need (two 512-thread blocks an SM at HiFi): capping them at 40 or 32
+// spilled or lengthened each block's chain more than the third and fourth
+// resident block gained (PERF.md).
+template <bool kBanded, bool kCigar, bool kRingGlobal, bool kSeqShared>
+__global__ void __launch_bounds__(kBanded ? kMaxThreadsBanded : kMaxThreadsExact,
+                                  !kBanded && !kRingGlobal && kSeqShared ? 2 : 1)
 wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
            int nw, const int* __restrict__ plen_arr,
            const int* __restrict__ tlen_arr,
@@ -186,6 +279,7 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
            int* __restrict__ choice, int num_chunks,
            int* __restrict__ lo_trace, int lo_stride, int* edge, int centre) {
   static_assert(!(kBanded && kRingGlobal), "the global ring is exact only");
+  static_assert(kSeqShared || !kRingGlobal, "K4 stages the packed rows");
   extern __shared__ int smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -217,12 +311,14 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
   int* scratch = win_ext + A;
   // K2: the current choice row word of each diagonal.
   uint32_t* row_word = reinterpret_cast<uint32_t*>(scratch + kScratchInts);
-  // K4: the block's packed pattern and text rows.
+  // The block's packed pattern and text rows, where it stages them.
   uint32_t* seq_s = row_word + (kCigar ? W : 0);
   int* slab = kRingGlobal && WE > 0 ? edge + static_cast<size_t>(b) * 3 * A * WE
                                     : nullptr;
-  const uint32_t* P = kRingGlobal ? seq_s : pat + static_cast<size_t>(b) * nw;
-  const uint32_t* T = kRingGlobal ? seq_s + nw + 1 : txt + static_cast<size_t>(b) * nw;
+  const uint32_t* gp = pat + static_cast<size_t>(b) * nw;
+  const uint32_t* gt = txt + static_cast<size_t>(b) * nw;
+  const uint32_t* P = kSeqShared ? seq_s : gp;
+  const uint32_t* T = kSeqShared ? seq_s + nw + 1 : gt;
 
   auto ring_ld = [&](int row, int j) -> int {
     if (kRingGlobal) {
@@ -266,8 +362,8 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       slab[i] = (row >= static_cast<size_t>(A) && row < 2 * static_cast<size_t>(A))
                     ? i_reset : kNull;
     }
-    const uint32_t* gp = pat + static_cast<size_t>(b) * nw;
-    const uint32_t* gt = txt + static_cast<size_t>(b) * nw;
+  }
+  if (kSeqShared) {
     for (int i = tid; i <= nw; i += nthreads) {
       seq_s[i] = i < nw ? __ldg(gp + i) : 0u;
       seq_s[nw + 1 + i] = i < nw ? __ldg(gt + i) : 0u;
@@ -293,11 +389,19 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     }
   };
 
-  // Score 0: extension of diagonal 0, at window index 0 (banded) or W/2.
-  if (tid == 0) {
-    const int init = extend<kRingGlobal>(0, 0, P, T, nw, plen, tlen);
-    ring_st(0, kBanded ? 0 : W2, init);
-    scratch[0] = init;
+  // Score 0: extension of diagonal 0, at window index 0 (banded) or W/2,
+  // by warp 0 (banded) or thread 0.
+  if (tid < 32) {
+    int init = 0;
+    if constexpr (kBanded) {
+      init = extend_warp<kSeqShared>(0, 0, tid == 0, P, T, nw, plen, tlen);
+    } else if (tid == 0) {
+      init = extend<kSeqShared>(0, 0, P, T, nw, plen, tlen);
+    }
+    if (tid == 0) {
+      ring_st(0, kBanded ? 0 : W2, init);
+      scratch[0] = init;
+    }
   }
   __syncthreads();
   if (target_k == 0 && scratch[0] == target_off) {
@@ -393,13 +497,17 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     }
 
     const int nib = 4 * (d & 7);
-    for (int j = j0 + tid; j <= j1; j += nthreads) {
+    // Banded, every lane of a warp runs each pass (extend_warp is
+    // cooperative): a lane past j1 recomputes lane j1 and stores nothing,
+    // and a warp wholly past j1 leaves the loop.  Exact, each thread leaves
+    // after its last diagonal.
+    for (int jb = j0; jb + (kBanded ? tid & ~31 : tid) <= j1; jb += nthreads) {
+      const int j = kBanded ? min(jb + tid, j1) : jb + tid;
+      bool live = jb + tid <= j1;
       int i_open, i_ext, d_open, d_ext, x_off, k;
       if constexpr (kBanded) {
-        if (j > ext_n) {
-          reset_cell(oslot, j);
-          continue;
-        }
+        if (live && j > ext_n) reset_cell(oslot, j);
+        live = live && j <= ext_n;
         // Child lane j is diagonal lo_n + j; each parent is read at its
         // own window base.
         const int* M = ring_s;
@@ -442,7 +550,14 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       const int i_new = i_pb >> 2;
       const int d_new = d_pb >> 2;
       const int m_pb = max(max(pack(x_off + 1, 2), pack(d_new, 3)), pack(i_new, 1));
-      const int m_new = extend<kRingGlobal>(m_pb >> 2, k, P, T, nw, plen, tlen);
+      // Banded: the warp-cooperative extension; exact: the serial one (see
+      // the note on the extension above).
+      int m_new = 0;
+      if constexpr (kBanded) {
+        m_new = extend_warp<kSeqShared>(m_pb >> 2, k, live, P, T, nw, plen, tlen);
+      }
+      if (!live) continue;
+      if constexpr (!kBanded) m_new = extend<kSeqShared>(m_pb >> 2, k, P, T, nw, plen, tlen);
       if (!kRingGlobal || static_cast<unsigned>(j - cl) < static_cast<unsigned>(C)) {
         int* c = ring_s + (j - cl);
         c[oslot * C] = m_new;
@@ -499,44 +614,88 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
   }
 }
 
-// Sets the kernel's shared-memory limit and launches it on B blocks of
-// `threads` (0: the kernel's most) threads, at most W.
-template <bool kBanded, bool kCigar, bool kRingGlobal>
-int launch(const void* pat, const void* txt, int nw, const void* plen,
-           const void* tlen, const void* valid, const void* sched,
-           int num_steps, int unfinished_score, int A, int W, int band,
-           void* dist, void* fin, void* choice, int num_chunks, void* lo_trace,
-           int lo_stride, void* edge, int centre, int threads, int B,
-           int device, void* stream) {
-  if (B == 0) return 0;
+// One instantiation of wfa_kernel.
+template <bool kBanded, bool kCigar, bool kRingGlobal, bool kSeqShared>
+struct Variant {
+  static auto kernel() { return &wfa_kernel<kBanded, kCigar, kRingGlobal, kSeqShared>; }
+  static size_t smem(int A, int W, int centre, int nw) {
+    return smem_bytes(A, W, kCigar, kRingGlobal, centre, nw, kSeqShared);
+  }
+  static constexpr int kMost = kBanded ? kMaxThreadsBanded : kMaxThreadsExact;
+};
+
+// Calls fn(Variant<...>{}) with the instantiation for these arguments: K4
+// when centre >= 0 (exact only, rows always staged), else K1/K2 banded or
+// exact, with the rows staged or not.
+template <bool kCigar, class Fn>
+int with_variant(int band, int centre, int rows_shared, Fn&& fn) {
+  if (centre >= 0) {
+    if (band > 0 || !rows_shared) return static_cast<int>(cudaErrorInvalidValue);
+    return fn(Variant<false, kCigar, true, true>{});
+  }
+  if (band > 0) {
+    return rows_shared ? fn(Variant<true, kCigar, false, true>{})
+                       : fn(Variant<true, kCigar, false, false>{});
+  }
+  return rows_shared ? fn(Variant<false, kCigar, false, true>{})
+                     : fn(Variant<false, kCigar, false, false>{});
+}
+
+// Sets the kernel's shared-memory limit and resolves `threads` (0: 512, or
+// 1024 in exact mode where a block's shared memory leaves no room for a
+// second one on an SM; at most W) on the current device.
+template <class V>
+int prepare(int A, int W, int nw, int centre, int& threads, size_t& smem) {
   if (W <= 0 || W % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (kRingGlobal && (centre < kCentreGranule || centre > W ||
-                      centre % kCentreGranule != 0 ||
-                      (centre < W && edge == nullptr))) {
+  if (threads != 0 && (threads < 32 || threads > V::kMost || threads % 32 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int most = kRingGlobal ? kMaxThreadsRing : kMaxThreads;
-  if (threads == 0) threads = most;
-  if (threads < 32 || threads > most || threads % 32 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  smem = V::smem(A, W, centre, nw);
+  cudaError_t err = cudaFuncSetAttribute(
+      V::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (threads == 0) {
+    threads = kMaxThreadsBanded;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, V::kernel(),
+                                                        kMaxThreadsBanded, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (V::kMost > kMaxThreadsBanded && blocks <= 1) threads = V::kMost;
   }
   if (threads > W) threads = W;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = smem_bytes(A, W, kCigar, kRingGlobal, centre, nw);
-  err = cudaFuncSetAttribute(wfa_kernel<kBanded, kCigar, kRingGlobal>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wfa_kernel<kBanded, kCigar, kRingGlobal>
-      <<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(pat), static_cast<const uint32_t*>(txt), nw,
-      static_cast<const int*>(plen), static_cast<const int*>(tlen),
-      static_cast<const unsigned char*>(valid), static_cast<const int*>(sched),
-      num_steps, unfinished_score, A, W, band, static_cast<int*>(dist),
-      static_cast<unsigned char*>(fin), static_cast<int*>(choice), num_chunks,
-      static_cast<int*>(lo_trace), lo_stride, static_cast<int*>(edge), centre);
-  return static_cast<int>(cudaGetLastError());
+  return 0;
+}
+
+// Launches the instantiation on B blocks (see prepare for `threads`).
+template <bool kCigar>
+int dispatch(const void* pat, const void* txt, int nw, const void* plen,
+             const void* tlen, const void* valid, const void* sched,
+             int num_steps, int unfinished_score, int A, int W, int band,
+             void* dist, void* fin, void* choice, int num_chunks, void* lo_trace,
+             int lo_stride, void* edge, int centre, int rows_shared,
+             int threads, int B, int device, void* stream) {
+  return with_variant<kCigar>(band, centre, rows_shared, [&](auto v) -> int {
+    using V = decltype(v);
+    if (B == 0) return 0;
+    if (centre >= 0 && (centre < kCentreGranule || centre > W ||
+                        centre % kCentreGranule != 0 ||
+                        (centre < W && edge == nullptr))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    size_t smem = 0;
+    if (const int rc = prepare<V>(A, W, nw, centre, threads, smem)) return rc;
+    const auto kernel = V::kernel();
+    kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint32_t*>(pat), static_cast<const uint32_t*>(txt), nw,
+        static_cast<const int*>(plen), static_cast<const int*>(tlen),
+        static_cast<const unsigned char*>(valid), static_cast<const int*>(sched),
+        num_steps, unfinished_score, A, W, band, static_cast<int*>(dist),
+        static_cast<unsigned char*>(fin), static_cast<int*>(choice), num_chunks,
+        static_cast<int*>(lo_trace), lo_stride, static_cast<int*>(edge), centre);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -545,8 +704,10 @@ extern "C" {
 
 // K1 (centre < 0) or K4 (centre >= 0: the ring's centre in shared memory,
 // edge: [B, 3A, W - centre] int32 scratch, null when centre == W; exact
-// only) on `stream` over B alignments of `threads` (0: 512 for K1, 1024 for
-// K4) threads; returns a cudaError_t (0 = ok).
+// only) on `stream` over B alignments of `threads` (0: see launch) threads;
+// rows_shared != 0
+// stages the packed rows in shared memory (K4 requires it); returns a
+// cudaError_t (0 = ok).
 // pat/txt: [B, nw] packed u32 rows; plen/tlen: [B] int32; valid: [B] bool;
 // sched: [num_steps, 7] int32 (score, out, mx, moe, ide slots, cone radius,
 // the out slot's previous cone radius); dist: [B] int32 out; fin: [B] bool
@@ -555,25 +716,12 @@ int wfa_distance_launch(const void* pat, const void* txt, int nw,
                         const void* plen, const void* tlen, const void* valid,
                         const void* sched, int num_steps, int unfinished_score,
                         int A, int W, int band, void* dist, void* fin,
-                        void* edge, int centre, int threads, int B, int device,
-                        void* stream) {
-  if (centre >= 0) {
-    if (band > 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<false, false, true>(pat, txt, nw, plen, tlen, valid, sched,
-                                      num_steps, unfinished_score, A, W, band,
-                                      dist, fin, nullptr, 0, nullptr, 0, edge,
-                                      centre, threads, B, device, stream);
-  }
-  if (band > 0) {
-    return launch<true, false, false>(pat, txt, nw, plen, tlen, valid, sched,
-                                      num_steps, unfinished_score, A, W, band,
-                                      dist, fin, nullptr, 0, nullptr, 0,
-                                      nullptr, -1, threads, B, device, stream);
-  }
-  return launch<false, false, false>(pat, txt, nw, plen, tlen, valid, sched,
-                                     num_steps, unfinished_score, A, W, band,
-                                     dist, fin, nullptr, 0, nullptr, 0,
-                                     nullptr, -1, threads, B, device, stream);
+                        void* edge, int centre, int rows_shared, int threads,
+                        int B, int device, void* stream) {
+  return dispatch<false>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
+                         unfinished_score, A, W, band, dist, fin, nullptr, 0,
+                         nullptr, 0, edge, centre, rows_shared, threads, B,
+                         device, stream);
 }
 
 // K2, or K4 in CIGAR mode when centre >= 0 (exact only): K1 plus the
@@ -586,25 +734,32 @@ int wfa_cigar_launch(const void* pat, const void* txt, int nw, const void* plen,
                      int num_steps, int unfinished_score, int A, int W,
                      int band, void* dist, void* fin, void* choice,
                      int num_chunks, void* lo_trace, int lo_stride, void* edge,
-                     int centre, int threads, int B, int device, void* stream) {
-  if (centre >= 0) {
-    if (band > 0) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<false, true, true>(pat, txt, nw, plen, tlen, valid, sched,
-                                     num_steps, unfinished_score, A, W, band,
-                                     dist, fin, choice, num_chunks, nullptr, 0,
-                                     edge, centre, threads, B, device, stream);
-  }
-  if (band > 0) {
-    return launch<true, true, false>(pat, txt, nw, plen, tlen, valid, sched,
-                                     num_steps, unfinished_score, A, W, band,
-                                     dist, fin, choice, num_chunks, lo_trace,
-                                     lo_stride, nullptr, -1, threads, B, device,
-                                     stream);
-  }
-  return launch<false, true, false>(pat, txt, nw, plen, tlen, valid, sched,
-                                    num_steps, unfinished_score, A, W, band,
-                                    dist, fin, choice, num_chunks, nullptr, 0,
-                                    nullptr, -1, threads, B, device, stream);
+                     int centre, int rows_shared, int threads, int B,
+                     int device, void* stream) {
+  return dispatch<true>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
+                        unfinished_score, A, W, band, dist, fin, choice,
+                        num_chunks, band > 0 ? lo_trace : nullptr,
+                        band > 0 ? lo_stride : 0, edge, centre, rows_shared,
+                        threads, B, device, stream);
+}
+
+// The threads a block of the kernel these arguments select would get
+// (threads 0: see prepare) and how many such blocks one SM holds at once:
+// out[0] blocks, out[1] threads.
+int wfa_blocks_per_sm(int cigar, int band, int centre, int rows_shared, int A,
+                      int W, int nw, int threads, int device, int* out) {
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto query = [&](auto v) -> int {
+    using V = decltype(v);
+    size_t smem = 0;
+    if (const int rc = prepare<V>(A, W, nw, centre, threads, smem)) return rc;
+    out[1] = threads;
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, V::kernel(), threads, smem));
+  };
+  return cigar ? with_variant<true>(band, centre, rows_shared, query)
+               : with_variant<false>(band, centre, rows_shared, query);
 }
 
 // Largest dynamic shared memory a block may opt in to on `device`.

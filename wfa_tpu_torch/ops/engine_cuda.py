@@ -9,11 +9,14 @@ and ``align_cigar_cuda`` launches K2 then K3 and returns the fused rows of
 ``traceback_torch.align_cigar_fused``.  With ``cfg.ring_global`` the first
 two and ``align_cigar_cuda`` launch K4 in place of K1 and K2: the same
 outputs, with the ring's centre (``centre_width`` diagonals around W/2) in
-shared memory and its edges in a global scratch buffer.  On CPU tensors each
-runs its plain version; on CUDA tensors it launches its kernel on the
-current stream or raises — it never falls back.  ``LAUNCHES`` counts each
-kernel's launches, so a run can show that its main path went through the
-kernels.
+shared memory and its edges in a global scratch buffer.  K1 and K2 stage the
+two packed rows in shared memory where they fit beside the ring
+(``rows_fit``, host arithmetic before the launch) and read them from global
+memory where they do not.  On CPU tensors each runs its plain version; on
+CUDA tensors it launches its kernel on the current stream or raises — it
+never falls back.  ``LAUNCHES`` counts each kernel's launches, and K1's and
+K2's by row placement (``rows_shared``, ``rows_global``), so a run can show
+that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from .traceback_torch import TracebackConfig
 LAUNCHES = {
     "wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
     "wfa_distance_ring": 0, "wfa_cigar_ring": 0,
+    "rows_shared": 0, "rows_global": 0,
 }
 
 _SCRATCH_INTS = 66  # kScratchInts in csrc/wfa_distance.cu
@@ -39,16 +43,26 @@ CENTRE_GRANULE = 32  # kCentreGranule: K4's centre is a multiple of it
 
 def smem_bytes(active_working_set: int, width: int, cigar: bool = False,
                ring_global: bool = False, centre: int = 0,
-               nwords: int = 0) -> int:
+               nwords: int | None = None) -> int:
     """Shared memory of one block: the [3A, W] int32 ring (K4: only its
-    [3A, centre] centre, and the two packed rows of ``nwords`` words, each
-    with a zero word after it), the per-slot window base and extent, the
-    argmin scratch and, in CIGAR mode, one choice row word per diagonal
+    [3A, centre] centre), the per-slot window base and extent, the argmin
+    scratch, in CIGAR mode one choice row word per diagonal and, where the
+    block stages them (``nwords`` given: K4 always, K1/K2 when ``rows_fit``),
+    the two packed rows of ``nwords`` words, each with a zero word after it
     (csrc smem_bytes)."""
     A = active_working_set
     ring = 3 * A * (centre if ring_global else width)
-    seq = 2 * (nwords + 1) if ring_global else 0
+    seq = 0 if nwords is None else 2 * (nwords + 1)
     return 4 * (ring + 2 * A + _SCRATCH_INTS + (width if cigar else 0) + seq)
+
+
+def rows_fit(active_working_set: int, width: int, nwords: int, cigar: bool,
+             smem: int) -> bool:
+    """K1/K2's row placement: whether the two packed rows of ``nwords``
+    words fit in ``smem`` bytes beside the shared ring.  Where they do not
+    (exact windows near ``max_width``), the kernel reads them from global
+    memory."""
+    return smem_bytes(active_working_set, width, cigar, nwords=nwords) <= smem
 
 
 def centre_width(active_working_set: int, width: int, nwords: int,
@@ -109,12 +123,49 @@ def _schedule_tensor(penalties, max_steps, score_limit, device):
     return rows.to(device), sched.num_steps, sched.unfinished_score, last
 
 
+def _placement(cfg: EngineConfig, nw: int, cigar: bool, centre: int | None,
+               rows: str | None, device) -> tuple[int, bool]:
+    """Where K1/K2/K4 keep their ring and rows on ``device``, host
+    arithmetic before the launch: (centre, rows_shared), centre -1 for the
+    shared-memory ring.  K4's centre is ``centre_width`` unless the caller
+    pins it; K4 always stages the rows, K1/K2 where ``rows_fit`` unless the
+    caller pins ``rows`` ('shared' or 'global').  Raises ValueError for
+    what does not fit."""
+    W = cfg.wf_width
+    if W <= 0 or W % 32:
+        raise ValueError(f"wf_width {W} must be a positive multiple of 32")
+    A = cfg.penalties.active_working_set
+    have = smem_optin(device)
+    if rows not in (None, "shared", "global") or (cfg.ring_global and rows == "global"):
+        raise ValueError(f"rows {rows!r}: None, 'shared' or (not K4) 'global'")
+    if cfg.ring_global:
+        if centre is None:
+            return centre_width(A, W, nw, cigar, have), True
+        need = smem_bytes(A, W, cigar, True, centre, nw)
+        if centre % CENTRE_GRANULE or not CENTRE_GRANULE <= centre <= W \
+                or need > have:
+            raise ValueError(
+                f"K4 centre {centre} at W={W}: a multiple of "
+                f"{CENTRE_GRANULE} up to W whose block ({need} bytes) fits "
+                f"the {have} bytes a block may use"
+            )
+        return centre, True
+    shared = rows_fit(A, W, nw, cigar, have) if rows is None else rows == "shared"
+    need = smem_bytes(A, W, cigar, nwords=nw if shared else None)
+    if need > have:
+        raise ValueError(
+            f"block of {need} bytes of shared memory (A={A}, W={W}, "
+            f"cigar={cigar}, rows {'shared' if shared else 'global'}) exceeds "
+            f"the {have} bytes a block may use"
+        )
+    return -1, shared
+
+
 def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool,
-                 centre: int | None):
+                 centre: int | None, rows: str | None):
     """Validate the inputs of K1/K2/K4 on a CUDA device (a band with
     ``ring_global`` cannot reach here: ``EngineConfig`` refuses it); returns
-    (B, nw, centre), centre -1 for the shared-memory ring.  K4's centre is
-    ``centre_width`` unless the caller pins it."""
+    (B, nw, centre, rows_shared) (``_placement``)."""
     device = pat.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -125,30 +176,25 @@ def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool,
         plen=(plen, torch.int32, (B,)), tlen=(tlen, torch.int32, (B,)),
         valid=(valid, torch.bool, (B,)),
     )
-    W = cfg.wf_width
-    if W <= 0 or W % 32:
-        raise ValueError(f"wf_width {W} must be a positive multiple of 32")
-    A = cfg.penalties.active_working_set
-    have = smem_optin(device)
-    if cfg.ring_global:
-        if centre is None:
-            return B, nw, centre_width(A, W, nw, cigar, have)
-        need = smem_bytes(A, W, cigar, True, centre, nw)
-        if centre % CENTRE_GRANULE or not CENTRE_GRANULE <= centre <= W \
-                or need > have:
-            raise ValueError(
-                f"K4 centre {centre} at W={W}: a multiple of "
-                f"{CENTRE_GRANULE} up to W whose block ({need} bytes) fits "
-                f"the {have} bytes a block may use"
-            )
-        return B, nw, centre
-    need = smem_bytes(A, W, cigar)
-    if need > have:
-        raise ValueError(
-            f"block of {need} bytes of shared memory (A={A}, W={W}, "
-            f"cigar={cigar}) exceeds the {have} bytes a block may use"
-        )
-    return B, nw, -1
+    return (B, nw, *_placement(cfg, nw, cigar, centre, rows, device))
+
+
+def blocks_per_sm(cfg: EngineConfig, nwords: int, device: torch.device, *,
+                  cigar: bool = False, _centre: int | None = None,
+                  _threads: int = 0, _rows: str | None = None) -> tuple[int, int]:
+    """How many blocks of the kernel that ``align_batch_cuda`` (``cigar``:
+    ``cigar_tables_cuda``) launches for ``cfg`` on rows of ``nwords`` words
+    one SM of ``device`` holds at once, by threads, registers and shared
+    memory (the CUDA occupancy query), and the threads of each block."""
+    centre, shared = _placement(cfg, nwords, cigar, _centre, _rows, device)
+    lib = load_library("wfa_distance")
+    out = (ctypes.c_int * 2)()
+    check(lib, lib.wfa_blocks_per_sm(
+        int(cigar), cfg.band if cfg.banded else -1, centre, int(shared),
+        cfg.penalties.active_working_set, cfg.wf_width, nwords, _threads,
+        device.index, out,
+    ))
+    return out[0], out[1]
 
 
 def _edges(cfg: EngineConfig, B: int, centre: int, device) -> torch.Tensor | None:
@@ -168,14 +214,17 @@ def align_batch_cuda(
     plen: torch.Tensor,   # [B] int32
     tlen: torch.Tensor,   # [B] int32
     valid: torch.Tensor,  # [B] bool
-    *, _centre: int | None = None, _threads: int = 0,
+    *, _centre: int | None = None, _threads: int = 0, _rows: str | None = None,
 ) -> dict[str, torch.Tensor]:
     """K1 (K4 with ``cfg.ring_global``): distances and finished flags of
-    one batch.  ``_centre`` pins K4's centre and ``_threads`` the threads a
-    block (0: 512 for K1, 1024 for K4); tests and timings use them."""
+    one batch.  ``_centre`` pins K4's centre, ``_threads`` the threads a
+    block (0: 512, and 1024 in exact mode where a block's shared memory
+    leaves room for no second block on an SM, as for K4) and ``_rows`` K1's
+    row placement ('shared' or 'global'); tests and timings use them."""
     if pat.device.type == "cpu":
         return engine_torch.align_batch_device(cfg, pat, txt, plen, tlen, valid)
-    B, nw, centre = _check_batch(cfg, pat, txt, plen, tlen, valid, False, _centre)
+    B, nw, centre, shared = _check_batch(cfg, pat, txt, plen, tlen, valid, False,
+                                         _centre, _rows)
     device = pat.device
     sched, num_steps, unfinished, _ = _schedule_tensor(
         cfg.penalties, cfg.max_steps, cfg.score_limit, device
@@ -192,16 +241,25 @@ def align_batch_cuda(
         cfg.penalties.active_working_set, cfg.wf_width,
         cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(),
-        None if edges is None else edges.data_ptr(), centre, _threads,
-        B, device.index, stream,
+        None if edges is None else edges.data_ptr(), centre, int(shared),
+        _threads, B, device.index, stream,
     ))
-    LAUNCHES["wfa_distance_ring" if cfg.ring_global else "wfa_distance"] += 1
+    _count("wfa_distance", cfg.ring_global, shared)
     return {"distance": dist, "finished": fin}
+
+
+def _count(kernel: str, ring_global: bool, rows_shared: bool) -> None:
+    """One launch of K1/K2 (by row placement) or K4."""
+    if ring_global:
+        LAUNCHES[kernel + "_ring"] += 1
+        return
+    LAUNCHES[kernel] += 1
+    LAUNCHES["rows_shared" if rows_shared else "rows_global"] += 1
 
 
 def cigar_tables_cuda(
     cfg: EngineConfig, score_cap: int, pat, txt, plen, tlen, valid,
-    *, _centre: int | None = None, _threads: int = 0,
+    *, _centre: int | None = None, _threads: int = 0, _rows: str | None = None,
 ) -> dict[str, torch.Tensor]:
     """K2 (K4 with ``cfg.ring_global``): ``distance``, ``finished``,
     ``choice_words`` [score_cap//8 + 2, B, W] int32 and, banded,
@@ -219,7 +277,8 @@ def cigar_tables_cuda(
         return engine_torch.cigar_tables(
             cfg, score_cap, pat, txt, plen, tlen, valid
         )
-    B, nw, centre = _check_batch(cfg, pat, txt, plen, tlen, valid, True, _centre)
+    B, nw, centre, shared = _check_batch(cfg, pat, txt, plen, tlen, valid, True,
+                                         _centre, _rows)
     device = pat.device
     sched, num_steps, unfinished, last = _schedule_tensor(
         cfg.penalties, cfg.max_steps, cfg.score_limit, device
@@ -251,9 +310,9 @@ def cigar_tables_cuda(
         cfg.penalties.active_working_set, W, cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(), words.data_ptr(), C,
         lo_ptr, lo_stride, None if edges is None else edges.data_ptr(),
-        centre, _threads, B, device.index, stream,
+        centre, int(shared), _threads, B, device.index, stream,
     ))
-    LAUNCHES["wfa_cigar_ring" if cfg.ring_global else "wfa_cigar"] += 1
+    _count("wfa_cigar", cfg.ring_global, shared)
     return res
 
 
@@ -307,12 +366,12 @@ def traceback_cuda(
 
 def align_cigar_cuda(
     cfg: EngineConfig, tb_cfg: TracebackConfig, pat, txt, plen, tlen, valid,
-    *, _centre: int | None = None, _threads: int = 0,
+    *, _centre: int | None = None, _threads: int = 0, _rows: str | None = None,
 ) -> torch.Tensor:
     """K2 (K4 with ``cfg.ring_global``) then K3 on the current stream:
     [B, 4 + opw] int32 rows (distance, finished, n_ops, 0, ops...), the
-    output of ``traceback_torch.align_cigar_fused``.  ``_centre`` and
-    ``_threads`` go to ``cigar_tables_cuda``."""
+    output of ``traceback_torch.align_cigar_fused``.  ``_centre``,
+    ``_threads`` and ``_rows`` go to ``cigar_tables_cuda``."""
     if pat.device.type == "cpu":
         return traceback_torch.align_cigar_fused(
             cfg, tb_cfg, pat, txt, plen, tlen, valid
@@ -323,7 +382,7 @@ def align_cigar_cuda(
         raise ValueError(f"lo_pad must be {engine_torch.lo_pad(tb_cfg.score_cap)}")
     tables = cigar_tables_cuda(
         cfg, tb_cfg.score_cap, pat, txt, plen, tlen, valid,
-        _centre=_centre, _threads=_threads,
+        _centre=_centre, _threads=_threads, _rows=_rows,
     )
     return traceback_cuda(
         tb_cfg, tables["choice_words"], tables.get("lo_trace"),

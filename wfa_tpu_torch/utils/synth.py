@@ -4,8 +4,9 @@
 rate, some containing ``N`` and some empty; ``EDGE_PAIRS`` are fixed pairs
 that reach the extension's boundary cases (sequence ends inside and exactly
 at a 16-base word, the tail mask, empty and invalid sequences);
-``ring_wide_pairs`` is the wide exact workload of
-``bench.py::_bench_ring_wide_exact``.
+``long_run_pairs`` are near-identical pairs of a few kbp whose matching
+runs cross 512 bases and reach either end; ``ring_wide_pairs`` is the wide
+exact workload of ``bench.py::_bench_ring_wide_exact``.
 """
 from __future__ import annotations
 
@@ -73,6 +74,41 @@ def random_pairs(
                 pat = []
             else:
                 txt = []
+        pairs.append((bytes(pat), bytes(txt)))
+    return pairs
+
+
+def long_run_pairs(rng: np.random.Generator, n: int, min_len: int = 2000,
+                   max_len: int = 5000) -> list[tuple[bytes, bytes]]:
+    """``n`` near-identical pairs of ``min_len..max_len`` bases, in turn:
+    identical (a run to both ends); the text a prefix of the pattern and the
+    pattern a prefix of the text (runs that end at ``tlen`` or at ``plen``);
+    substitutions 511, 512 or 513 bases apart (runs of about one 32-word
+    round of the extension, and just past it); a few random edits (runs of
+    hundreds to thousands of bases); and homopolymers of unequal length,
+    where every diagonal of a warp has a long run at once."""
+    pairs = []
+    for i in range(n):
+        length = int(rng.integers(min_len, max_len + 1))
+        pat = [int(c) for c in _BASES[rng.integers(0, 4, length)]]
+        kind = i % 6
+        if kind == 0:
+            txt = list(pat)
+        elif kind == 1:
+            txt = pat[: length - int(rng.integers(1, 40))]
+        elif kind == 2:
+            txt = pat
+            pat = txt[: length - int(rng.integers(1, 40))]
+        elif kind == 3:
+            txt = list(pat)
+            pos = -1
+            while (pos := pos + 511 + int(rng.integers(3))) < length:
+                txt[pos] = int(_BASES[(list(_BASES).index(txt[pos]) + 1) % 4])
+        elif kind == 4:
+            txt = _mutate(rng, pat, float(rng.uniform(0.0005, 0.003)))
+        else:
+            pat = [int(_BASES[i % 4])] * length
+            txt = pat[: length - int(rng.integers(0, 9))] + [int(_BASES[(i + 1) % 4])]
         pairs.append((bytes(pat), bytes(txt)))
     return pairs
 
