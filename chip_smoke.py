@@ -10,7 +10,11 @@ wfa_traceback.cu; the ring-row probe: ring_bw.cu), fails on a register
 spill, holds each kernel against its plain PyTorch version on random pairs
 (K1 and K2 also on near-identical 2-5 kbp pairs whose long runs the
 warp-cooperative extension serves, with the packed rows in shared and in
-global memory and, exact, at 512 and 1024 threads a block), drives
+global memory and, exact, at 512 and 1024 threads a block; K3 also alone,
+at 1, 2 and 4 walks a block, on tables whose
+banded re-centres move lo past its window, rows skipped, walks at the
+row's ends, B = 1, forged tables, distances past score_cap and lo_pad, a
+stream past opw; a K3 stack frame fails the build like a spill), drives
 align_pairs(backend='cuda') on the golden score sets in distance and CIGAR
 mode, and runs through the kernels alone, their plain versions and
 align_pairs, with times: the HiFi banded workload (400 pairs of ~14 kbp,
@@ -18,7 +22,9 @@ W=512, band 25, penalties 2,3,1, max_steps 3000) in distance and CIGAR mode
 on K1 and K2 + K3, with the slowest pair's 8 copies alone and the rows in
 global memory beside it; seq_1000_n1000 (exact, W=640) on K1 and K2 at 512
 and 1024 threads; the 100 x 10 kbp golden set at max_error 3000 (exact,
-W=6016) in distance and CIGAR mode on K4, at 1024 and 512 threads a block,
+W=6016) in distance and CIGAR mode on K4, at 1024 and 512 threads a block
+(K3 alone timed on the HiFi, pair-30, exact-1k and wide10k tables, warm
+and with L2 flushed, with its per-walk row loads, misses and cold entries),
 with its cells and edge traffic, and K1 against K4 at W=3840; the 16 x 5
 kbp ring-wide set (exact, W=9216) on K4; the ring-row probe at two sizes;
 the speed-of-light calibration kernels and the wide-gather probe
@@ -108,7 +114,8 @@ def main() -> int:
     from wfa_tpu_torch.utils.device_query import describe
     from wfa_tpu_torch.utils.io import read_seq_file
     from wfa_tpu_torch.utils.synth import (
-        EDGE_PAIRS, long_run_pairs, random_pairs, ring_wide_pairs,
+        EDGE_PAIRS, edge_pairs, forged_walks, long_run_pairs, overflow_walks,
+        random_pairs, ring_wide_pairs,
     )
     from wfa_tpu_torch.utils.verification import affine_score, check_cigar
 
@@ -184,11 +191,26 @@ def main() -> int:
         r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
     require(not spills, "wfa_distance.cu spills registers: " + "; ".join(spills))
     require(len(regs) == 10, f"expected 10 wfa_kernel instantiations, got {regs}")
+    # K3's two instantiations <banded>: no spill, no stack
+    # (a walker member that left registers would show as a stack frame).
+    k3_regs, kernel = {}, None
+    k3_log = libs["wfa_traceback"].with_suffix(".log").read_text().splitlines()
+    for ln in k3_log:
+        if m := re.search(r"wfa_traceback_kernelILb(\d)E", ln):
+            kernel = f"<{('false', 'true')[int(m.group(1))]}>"
+        elif kernel and (m := re.search(r"Used (\d+) registers", ln)):
+            k3_regs[kernel] = int(m.group(1))
+    k3_bad = [ln for ln in k3_log if ("spill" in ln or "stack frame" in ln)
+              and not re.search(r"\b0 bytes stack frame, 0 bytes spill stores, "
+                                r"0 bytes spill loads", ln)]
+    require(not k3_bad, "wfa_traceback.cu spills or uses a stack: " + "; ".join(k3_bad))
+    require(len(k3_regs) == 2, f"expected 2 wfa_traceback_kernel instantiations, got {k3_regs}")
     # The host library: packing, readers, the CPU fallback, CIGAR decoding.
     require(_build.ensure_native(), "the native host library did not build")
     threads = native.get_lib().wfa_cpu_num_threads()
     phase("build", t0, f"nvcc sm_90a {t_nvcc:.2f}s: {ptxas}; wfa_kernel "
-          f"registers {regs}, no spills; native host "
+          f"registers {regs}, no spills; wfa_traceback_kernel<banded> "
+          f"registers {k3_regs}, no spill or stack; native host "
           f"library {time.perf_counter() - t0 - t_nvcc:.2f}s, {threads} CPU "
           "fallback thread(s)")
 
@@ -206,6 +228,106 @@ def main() -> int:
         )
         return traceback_torch.fuse(plain["distance"], plain["finished"],
                                     walk["n_ops"], walk["ops"])
+
+    def fused_walk(tb, words, lo, dist, fin, tk):
+        """K3's plain version on the card: the fused rows."""
+        walk = traceback_torch.traceback_batch_device(tb, words, lo, dist, fin, tk)
+        return traceback_torch.fuse(dist, fin, walk["n_ops"], walk["ops"])
+
+    def k3_stress_cases(rng):
+        """(name, tb, words, lo_trace, dist, fin, target_k) on the card."""
+        def tables(pen, width, band, pairs):
+            ccfg, tb = cigar_configs(pen, 200, width, band)
+            args = tensors(pairs)
+            t = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args)
+            return (tb, t["choice_words"], t.get("lo_trace"), t["distance"],
+                    t["finished"], args[3] - args[2])
+
+        p231 = Penalties(2, 3, 1)
+        narrow = tables(p231, 96, 5, EDGE_PAIRS + random_pairs(
+            rng, 200, 60, 400, 0.3, n_rate=0.0))
+        yield ("banded-narrow", *narrow)
+        i = int(torch.nonzero(narrow[4] & (narrow[3] > 0))[0])   # a lane that walks
+        yield ("banded-b1", narrow[0], narrow[1][:, i:i + 1].contiguous(),
+               *(t[i:i + 1].contiguous() for t in narrow[2:]))
+        yield ("banded-x4o1e2", *tables(Penalties(4, 1, 2), 96, 10, random_pairs(
+            rng, 64, 100, 400, 0.3, n_rate=0.0)))
+        yield ("banded-x70", *tables(Penalties(70, 6, 2), 64, 25, random_pairs(
+            rng, 64, 30, 200, 0.3, n_rate=0.0)))
+        yield ("exact-edges", *tables(p231, 128, -1, edge_pairs(rng, 128, 37)))
+        yield ("exact", *tables(Penalties(1, 0, 1), 256, -1, EDGE_PAIRS + random_pairs(
+            rng, 96, 10, 600, 0.3)))
+        exact_tb = traceback_torch.TracebackConfig(p231, 64, 120, banded=False)
+        band_tb = traceback_torch.TracebackConfig(p231, 64, 120, banded=True,
+                                                  lo_pad=engine_torch.lo_pad(120))
+        short_tb = traceback_torch.TracebackConfig(p231, 64, 120, banded=True,
+                                                   lo_pad=64)
+        yield ("forged-exact", exact_tb, *forged_walks(rng, exact_tb, 37, device=dev))
+        yield ("forged-banded", band_tb, *forged_walks(rng, band_tb, 37, device=dev))
+        yield ("forged-lo-pad", short_tb, *forged_walks(rng, short_tb, 37, device=dev))
+        # Rows past the table for every lane: the last lane's distance would
+        # read lo_trace past the allocation if it were read before the row
+        # check.
+        past = np.linspace(8 * band_tb.num_chunks, band_tb.lo_pad + 10**6, 37)
+        yield ("past-score-cap", band_tb, *forged_walks(
+            rng, band_tb, 37, dist=past.astype(np.int64), device=dev))
+        # A stream past opw: 2000 ops to the origin, 2060 of 2048, off the origin.
+        yield ("overflow", *overflow_walks(dev))
+
+    flush = torch.empty(2**25, dtype=torch.int32, device=dev)   # 128 MB > L2
+
+    def launch_ms(fn, reps, cold=False):
+        """One launch at a time, each queued behind a spin kernel so that
+        the host's enqueue is not timed (K3 runs for tens of us, about as
+        long as a launch from Python): the mean ms; ``cold`` overwrites
+        128 MB first, so that the launch finds none of its inputs in L2."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for _ in range(reps):
+            if cold:
+                flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
+
+    def k3_time(tb, t, tk, reps=5):
+        """K3 alone on K2's tables ``t``: (ms warm, its rows in L2 from the
+        launch before; ms cold; fused rows; the per-walk counters [B, 4]:
+        rows entered, window loads, misses, cold entries)."""
+        def run(**kw):
+            return engine_cuda.traceback_cuda(
+                tb, t["choice_words"], t.get("lo_trace"), t["distance"],
+                t["finished"], tk, **kw)
+        out = run()
+        torch.cuda.synchronize()
+        warm = launch_ms(run, reps)
+        cold = launch_ms(run, reps, cold=True)
+        st = torch.zeros((tk.shape[0], 4), dtype=torch.int32, device=dev)
+        run(_stats=st)
+        return warm, cold, out, st
+
+    def k3_bound_of(fused, banded):
+        """K3's bound_ms on this run's walks: each step reads one choice word
+        (and, banded, one lo_trace entry) and does OPS_PER_WALK_STEP ops; the
+        inputs of each alignment (9 bytes) and the fused rows."""
+        steps = int(fused[:, 2].clamp(min=0).long().sum())
+        return bound_ms(steps * (8 if banded else 4) + 9 * fused.shape[0]
+                        + fused.numel() * 4, steps * OPS_PER_WALK_STEP)
+
+    def k3_line(ms, cold, bound, st, fused):
+        walked = fused[:, 2] > 0
+        per = st[walked].double().mean(0).tolist()
+        return (f"K3 {ms:.4f} ms one launch at a time, {cold:.4f} cold (bound "
+                f"{bound[0]:.5f} ms, "
+                f"{bound[1]}; longest "
+                f"walk {int(fused[:, 2].max())} steps; per walk {per[0]:.1f} rows, "
+                f"{per[1]:.1f} window loads, {per[2]:.2f} misses, {per[3]:.2f} "
+                "cold entries)")
 
     def exact_bound(cfg, dist, fin, args, cigar):
         """K4's bound_ms on this run's data: cells = for each scheduled
@@ -531,10 +653,43 @@ def main() -> int:
                 require(torch.equal(fused, want), f"long runs: K2 + K3 rows differ: {what}")
                 n_long += 1
         n_walks += int((want[:, 2] > 0).sum())
+    # K3 alone against the plain walk on the same tables, at 1, 2 and 4
+    # walks a block: banded tables whose
+    # re-centres move lo past the window, rows skipped by (70,6,2), walks
+    # that start at the row's ends, B = 1, forged tables (random words and
+    # lo, lo_pad below the rows, distances past score_cap and past lo_pad for
+    # every lane, the last one too) and a stream that overflows opw.
+    k3_stats = {}
+    n_k3 = 0
+    for what, tb, words, lo, dist, fin, tk in k3_stress_cases(rng):
+        want = fused_walk(tb, words, lo, dist, fin, tk)
+        for warps in (1, 2, 4):
+            st = torch.zeros((dist.shape[0], 4), dtype=torch.int32, device=dev)
+            got = engine_cuda.traceback_cuda(tb, words, lo, dist, fin, tk,
+                                             _warps=warps, _stats=st)
+            require(torch.equal(got, want),
+                    f"K3 differs from the plain walk: {what}, {warps} warps")
+            max_err["wfa_traceback"] = max(max_err["wfa_traceback"],
+                                           (got - want).abs().max().item())
+            require(bool((st[:, 1] >= st[:, 0] + st[:, 2]).all())
+                    and bool((st[:, 3] <= st[:, 0]).all()),
+                    f"K3 counters inconsistent: {what}")
+            k3_stats[what] = tuple(st.long().sum(0).tolist())
+            n_k3 += 1
+        if what == "past-score-cap":
+            require(bool((want[:, 2] == torch.where(fin, -1, 0)).all()),
+                    "distances past the table's rows not corrupt")
+        if what == "overflow":
+            require(want[:, 2].tolist() == [2000, -1, -1], "overflow case")
+    require(k3_stats["banded-narrow"][2] > 0,
+            "the narrow banded tables gave K3 no window miss")
     phase("k2k3-vs-plain", t0, f"{n_cases} cases, {n_lanes} lanes, {n_walks} "
           "walks: distances, flags, n_ops and op streams equal; tables equal "
           f"on the readable region; long runs: {n_long} launches of K2 + K3 "
-          "over both row placements (x 512 and 1024 threads exact), equal")
+          "over both row placements (x 512 and 1024 threads exact), equal; "
+          f"K3 stress: {n_k3} launches equal to the plain walk (rows, loads, "
+          "misses, cold entries: " + "; ".join(
+              f"{w} {v}" for w, v in k3_stats.items()) + ")")
 
     # ---- 7. CIGAR goldens through align_pairs(compute_cigar=True) ----
     t0 = time.perf_counter()
@@ -596,10 +751,15 @@ def main() -> int:
     k3_ms, _ = cuda_ms(lambda: engine_cuda.traceback_cuda(
         tb, tables["choice_words"], tables["lo_trace"], tables["distance"],
         tables["finished"], tk), 5)
+    k3_launch_ms, k3_cold_ms, k3_out, k3_st = k3_time(tb, tables, tk)
     k2_pair_ms, pair_tab = cuda_ms(
         lambda: engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *pair_args), 5)
     require(pair_tab["distance"].tolist() == [ref["distance"][slow]] * HIFI_REPS,
             f"HiFi pair {slow}: K2 distances differ from the stored reference")
+    k3_pair_ms, k3_pair_cold, pair_out, _ = k3_time(tb, pair_tab,
+                                                    pair_args[3] - pair_args[2])
+    require(torch.equal(pair_out, k3_out[slow::len(ref["distance"])]),
+            f"HiFi pair {slow}: K3 alone differs from K3 on the 400")
     k2_global_ms, gtab = cuda_ms(lambda: engine_cuda.cigar_tables_cuda(
         ccfg, tb.score_cap, *hifi_args, _rows="global"), 5)
     require(torch.equal(gtab["distance"], tables["distance"]),
@@ -666,13 +826,17 @@ def main() -> int:
     k1_bound = bound_ms(seq_bytes + 5 * n, cells * OPS_PER_CELL)
     k2_bound = bound_ms(seq_bytes + 5 * n + rows * 512 * 4 + scored * 4,
                         cells * OPS_PER_CELL_CIGAR)
-    k3_bound = bound_ms(walk_steps * 8 + 9 * n + fused.numel() * 4,
-                        walk_steps * OPS_PER_WALK_STEP)
+    k3_bound = k3_bound_of(want, True)
+    require(torch.equal(k3_out, want), "HiFi CIGAR: K3 alone differs from plain")
     phase("hifi-cigar", t0,
           f"{n} pairs: K2+K3 {k2k3_ms:.3f} ms ({n / k2k3_ms * 1e3:.1f} aln/s; "
           f"K2 {k2_ms:.3f} (pair {slow} x{HIFI_REPS} alone {k2_pair_ms:.3f}; the "
           f"rows in global memory {k2_global_ms:.3f}; {k2_occ[0]} blocks of "
-          f"{k2_occ[1]} threads an SM), K3 {k3_ms:.3f}), plain K2+K3 "
+          f"{k2_occ[1]} threads an SM), "
+          f"K3 {k3_ms:.4f} ms 5 back to back (the kernels line's), "
+          f"{k3_line(k3_launch_ms, k3_cold_ms, k3_bound, k3_st, want)}, pair {slow} "
+          f"x{HIFI_REPS} alone K3 {k3_pair_ms:.4f} ms, {k3_pair_cold:.4f} cold), "
+          "plain K2+K3 "
           f"{k2_plain_ms + k3_plain_ms:.3f} ms (K2 {k2_plain_ms:.3f}, K3 "
           f"{k3_plain_ms:.3f}), align_pairs {ce2e_s * 1e3:.3f} ms "
           f"({n / ce2e_s:.1f} aln/s), launches {cigar_launches}; all on card, "
@@ -705,6 +869,18 @@ def main() -> int:
                 and bool(tab["finished"].all()),
                 f"seq_1000_n1000 at {nt} threads: K1/K2 distances differ from "
                 "the goldens")
+    tab = engine_cuda.cigar_tables_cuda(ccfg1k, cap1k, *args1k)
+    tb1k = traceback_torch.TracebackConfig(pen, 640, cap1k, banded=False)
+    tk1k = args1k[3] - args1k[2]
+    k3_1k_ms, k3_1k_cold, k3_1k, k3_1k_st = k3_time(tb1k, tab, tk1k)
+    want1k = fused_walk(tb1k, tab["choice_words"], None, tab["distance"],
+                        tab["finished"], tk1k)
+    require(torch.equal(k3_1k, want1k) and bool((k3_1k[:, 2] > 0).all()),
+            "seq_1000_n1000: K3 differs from the plain walk or left a walk corrupt")
+    max_err["wfa_traceback"] = max(max_err["wfa_traceback"],
+                                   (k3_1k - want1k).abs().max().item())
+    k3_1k_line = k3_line(k3_1k_ms, k3_1k_cold, k3_bound_of(want1k, False),
+                         k3_1k_st, want1k)
     del tab
     phase("exact-1k", t0,
           f"{len(gold1k)} pairs, W=640, rows {'shared' if rows1k else 'global'}: "
@@ -712,7 +888,8 @@ def main() -> int:
           f"{k1_1k[1024]:.3f} ms at 1024 (640 at W=640; {occ1k[1024]} blocks an "
           f"SM), default {engine_cuda.blocks_per_sm(cfg1k, nw1k, dev)[1]} threads; "
           f"K2 {k2_1k[512]:.3f} ms at 512, {k2_1k[1024]:.3f} ms at 1024; "
-          f"distances equal the goldens; [{smi}]")
+          f"distances equal the goldens; {k3_1k_line}, equal to the plain walk; "
+          f"[{smi}]")
 
     # ---- 10. K4 (the ring's edges in global memory) against the plain versions ----
     t0 = time.perf_counter()
@@ -858,6 +1035,18 @@ def main() -> int:
     cwork10 = k4_work(ccfg10, ccentre10, tables10["distance"].cpu(),
                       tables10["finished"].cpu())
     del cplain10, plain10
+    tb10 = traceback_torch.TracebackConfig(pen, 6016, cap10, banded=False)
+    tk10 = args10[3] - args10[2]
+    k3_10_ms, k3_10_cold, k3_10, k3_10_st = k3_time(tb10, tables10, tk10, 3)
+    want10 = fused_walk(tb10, tables10["choice_words"], None, tables10["distance"],
+                        tables10["finished"], tk10)
+    require(torch.equal(k3_10, want10) and bool((k3_10[:, 2] > 0).all()),
+            "seq_10K_n100: K3 differs from the plain walk or left a walk corrupt")
+    max_err["wfa_traceback"] = max(max_err["wfa_traceback"],
+                                   (k3_10 - want10).abs().max().item())
+    k3_10_line = k3_line(k3_10_ms, k3_10_cold, k3_bound_of(want10, False),
+                         k3_10_st, want10)
+    del tables10
 
     align_pairs(w10.patterns[:4], w10.texts[:4], copts)   # warm-up
     torch.cuda.synchronize()
@@ -900,6 +1089,7 @@ def main() -> int:
           f"{k4c_threads[1024]:.3f}, 512 threads {k4c_threads[512]:.3f}; the "
           f"whole ring {WHOLE_RING_MS['wide10k-cigar']} ms), plain "
           f"{k4c_plain_ms:.3f} ms; {work_line(cwork10, k4c_cells, ccentre10)}; "
+          f"{k3_10_line}, equal to the plain walk; "
           f"align_pairs {c10_s * 1e3:.3f} ms ({n10 / c10_s:.1f} aln/s), all "
           "on card, every CIGAR valid and rescoring to its golden, equal to "
           f"the plain route's on 16 pairs ({route_plain_s:.2f}s); "

@@ -8,7 +8,11 @@ above every distance K1 and K2 equal their uncapped runs.  K2 (the same source, 
 equal, and the choice table and ``lo_trace`` equal wherever a backward walk
 can read them (``engine_torch.tables_equal``; exact tables on the cone).
 K3 (wfa_tpu_torch/ops/csrc/wfa_traceback.cu): the fused rows (distance,
-finished, n_ops, 0, op stream) equal.  K4 (wfa_distance.cu with the ring's
+finished, n_ops, 0, op stream) equal, also on the stress cases of
+tests/test_torch_traceback.py (window misses, rows skipped, walks at the
+row's ends, forged tables, lo_pad below the rows, a stream past opw) at
+1, 2 and 4 walks a block, where its per-walk load counters equal that
+file's numpy model's.  K4 (wfa_distance.cu with the ring's
 edges in global memory, ``ring_global``): the same outputs as the plain
 versions and as K1/K2 where both run, also with a centre pinned narrower
 than the cone, so that cells cross from shared to global memory.  The ring-row probe (csrc/ring_bw.cu): the ring and
@@ -223,6 +227,47 @@ def test_k3_walk_errors_equal_plain_version(device):
     )
     assert torch.equal(got.cpu(), want)
     assert got[:, 2].tolist() == [3, -1, 0, 0]
+
+
+# The cases of tests/test_torch_traceback.py, whose numpy model of K3's
+# windowed walk gives the counters the kernel must report.
+_K3_CASES = ("banded-narrow", "banded-x4o1e2", "banded-x70", "exact",
+             "exact-edges", "exact-b1", "forged-exact", "forged-banded",
+             "forged-lo-pad", "overflow")
+
+
+@pytest.mark.parametrize("name", _K3_CASES)
+def test_k3_equals_plain_walk_and_model(device, name):
+    """K3 at 1, 2 and 4 walks a block: the fused rows equal the plain
+    walk's (B = 1 and B = 37, not a multiple of the warps a block, among
+    the cases), and its per-walk counters (rows, loads, misses, cold
+    entries) equal the numpy model's."""
+    import test_torch_traceback as model
+
+    _, tb, words, lo, dist, fin, tk = model.traceback_cases()[name]
+    walk = traceback_torch.traceback_batch_device(tb, words, lo, dist, fin, tk)
+    want = traceback_torch.fuse(dist, fin, walk["n_ops"], walk["ops"])
+    args = [None if t is None else t.to(device) for t in (words, lo, dist, fin, tk)]
+    stats = model.model_batch(tb, words, lo, dist, fin, tk)[2]
+    for warps in (1, 2, 4):
+        st = torch.zeros((dist.shape[0], 4), dtype=torch.int32, device=device)
+        before = engine_cuda.LAUNCHES["wfa_traceback"]
+        got = engine_cuda.traceback_cuda(tb, *args, _warps=warps, _stats=st)
+        torch.cuda.synchronize()
+        assert engine_cuda.LAUNCHES["wfa_traceback"] == before + 1
+        assert torch.equal(got.cpu(), want), warps
+        np.testing.assert_array_equal(st.cpu().numpy(), stats)
+
+
+def test_k3_refuses_what_it_cannot_run(device):
+    tb = traceback_torch.TracebackConfig(Penalties(2, 3, 1), 64, 40, banded=False)
+    words = torch.zeros((tb.num_chunks, 2, 64), dtype=torch.int32, device=device)
+    dist = torch.ones(2, dtype=torch.int32, device=device)
+    fin = torch.ones(2, dtype=torch.bool, device=device)
+    for pin in (dict(_warps=9), dict(_warps=-1),
+                dict(_stats=torch.zeros((2, 3), dtype=torch.int32, device=device))):
+        with pytest.raises(ValueError):
+            engine_cuda.traceback_cuda(tb, words, None, dist, fin, dist, **pin)
 
 
 @pytest.mark.parametrize(

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Times K1 and K2 (wfa_tpu_torch/ops/csrc/wfa_distance.cu) with CUDA events.
+"""Times K1, K2 and K4 (wfa_tpu_torch/ops/csrc/wfa_distance.cu) and K3
+(wfa_traceback.cu) with CUDA events.
 
     python3 tools/torch_k1k2_times.py [--root DIR] [--rounds N]
+                                      [--warps 1,2,4] [--only NAME]
 
 Needs one NVIDIA GPU and nvcc; imports no jax.  ``--root`` imports
 ``wfa_tpu_torch`` from another checkout of the repository (an earlier commit
@@ -33,7 +35,17 @@ lists of ms:
 - with ``_rows`` on the wrappers, the HiFi times with the rows pinned in
   global memory (``hifi_k1_rows_global``, ``hifi_k2_rows_global``);
 - with ``engine_cuda.blocks_per_sm``, ``blocks_per_sm``: the blocks one SM
-  holds at once and their threads, for the default launches above.
+  holds at once and their threads, for the default launches above;
+- ``hifi_k3``, ``pair30_k3``, ``exact1k_k3``, ``wide10k_k3``: K3 alone on
+  K2's (K4's) tables of the HiFi, pair-30, exact-1k and wide10k workloads
+  above, at the wrapper's defaults; and, where ``traceback_cuda`` takes
+  ``_warps``, the same at each of ``--warps`` walks a block
+  (``hifi_k3_w1`` ...).  ``--only`` times only the runs whose name
+  contains it.
+  Every K3 run's fused rows must equal the first run's of its workload.
+  K3 is timed one launch at a time behind a spin kernel (its walks take
+  about as long as a launch from Python), warm (its rows in L2 from the
+  run before) and, as ``..._cold``, after 128 MB were overwritten.
 """
 from __future__ import annotations
 
@@ -52,6 +64,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", type=Path, default=ROOT)
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--warps", default="1,2,4",
+                    help="K3's walks a block to time, comma-separated")
+    ap.add_argument("--only", default="",
+                    help="time only the runs whose name contains this")
     args = ap.parse_args()
     import torch
 
@@ -63,7 +79,7 @@ def main() -> int:
     import numpy as np
 
     from wfa_tpu_torch import AlignmentOptions, Penalties, aligner
-    from wfa_tpu_torch.ops import engine_cuda, engine_torch
+    from wfa_tpu_torch.ops import engine_cuda, engine_torch, traceback_torch
     from wfa_tpu_torch.ops.packing import pack_batch
     from wfa_tpu_torch.schedule import build_schedule
     from wfa_tpu_torch.utils.io import read_seq_file
@@ -92,6 +108,29 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
+
+    flush = torch.empty(2**25, dtype=torch.int32, device=dev)   # 128 MB > L2
+
+    def launch_ms(fn, reps=5, cold=False):
+        """One launch at a time, each queued behind a spin kernel so that
+        the host's enqueue is not timed (K3 runs for tens of us, about as
+        long as a launch from Python): the mean ms; ``cold`` overwrites
+        128 MB first, so that the launch finds none of its table in L2."""
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        total = 0.0
+        for _ in range(reps):
+            if cold:
+                flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+        return total / reps
 
     def route(pairs, opts):
         lens = np.array([max(len(p), len(t)) for p, t in pairs])
@@ -160,13 +199,40 @@ def main() -> int:
         runs["hifi_k2_rows_global"] = lambda: K2(band_ccfg, band_cap, *hifi_args,
                                                  _rows="global")
 
+    # K3 alone, on tables K2 (K4) built once per workload.
+    K3 = engine_cuda.traceback_cuda
+    pinned = "_warps" in inspect.signature(K3).parameters
+    for name, ccfg, cap, targs in (
+        ("hifi", band_ccfg, band_cap, hifi_args),
+        ("pair30", band_ccfg, band_cap, pair_args),
+        ("exact1k", k1k_ccfg, k1k_cap, k1k_args),
+        ("wide10k", w10_ccfg, w10_cap, w10_args),
+    ):
+        tab = K2(ccfg, cap, *targs)
+        tb = traceback_torch.TracebackConfig(
+            pen, ccfg.wf_width, cap, banded=ccfg.banded,
+            lo_pad=engine_torch.lo_pad(cap) if ccfg.banded else 0)
+        k3_args = (tb, tab["choice_words"], tab.get("lo_trace"), tab["distance"],
+                   tab["finished"], targs[3] - targs[2])
+        k3_runs = {f"{name}_k3": lambda a=k3_args: K3(*a)}
+        if pinned:
+            for w in map(int, args.warps.split(",")):
+                k3_runs[f"{name}_k3_w{w}"] = lambda a=k3_args, w=w: K3(*a, _warps=w)
+        for key, fn in k3_runs.items():
+            runs[key] = fn
+            runs[key + "_cold"] = fn
+
+    runs = {k: v for k, v in runs.items() if args.only in k}
     # Every run's distances must equal the first run's of its workload.
     want = {}
     times = {name: [] for name in runs}
     for _ in range(args.rounds):
         for name, fn in runs.items():
             try:
-                times[name].append(cuda_ms(fn))
+                if "_k3" in name:
+                    times[name].append(launch_ms(fn, cold=name.endswith("_cold")))
+                else:
+                    times[name].append(cuda_ms(fn))
             except RuntimeError:
                 if not name.endswith("_1024"):
                     raise
@@ -174,13 +240,16 @@ def main() -> int:
                 continue
             out = fn()
             key = name.split("_")[0]
-            got = (out["distance"].cpu(), out["finished"].cpu())
+            if isinstance(out, torch.Tensor):       # K3's fused rows
+                key += "_k3"
+                got = (out.cpu(),)
+            else:
+                got = (out["distance"].cpu(), out["finished"].cpu())
             ref_out = want.setdefault(key, got)
-            if not (torch.equal(got[0], ref_out[0]) and torch.equal(got[1], ref_out[1])):
+            if not all(torch.equal(a, b) for a, b in zip(got, ref_out)):
                 raise SystemExit(f"torch_k1k2_times: {name} differs from its workload's first run")
         runs = {k: v for k, v in runs.items() if times[k] is not None}
-    hifi_dist = want["hifi"][0].tolist()
-    if hifi_dist != ref * 8:
+    if "hifi" in want and want["hifi"][0].tolist() != ref * 8:
         raise SystemExit("torch_k1k2_times: HiFi distances differ from the reference")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

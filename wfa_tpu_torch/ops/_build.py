@@ -132,7 +132,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     else:
         lib.wfa_traceback_launch.restype = i
         lib.wfa_traceback_launch.argtypes = [
-            p, i, p, i, p, p, p, i, i, i, i, i, i, p, i, p,
+            p, i, p, i, p, p, p, i, i, i, i, i, i, p, p, i, i, p,
         ]
 
 

@@ -12,7 +12,9 @@ outputs, with the ring's centre (``centre_width`` diagonals around W/2) in
 shared memory and its edges in a global scratch buffer.  K1 and K2 stage the
 two packed rows in shared memory where they fit beside the ring
 (``rows_fit``, host arithmetic before the launch) and read them from global
-memory where they do not.  On CPU tensors each runs its plain version; on
+memory where they do not.  K3 walks each alignment with one warp, two walks
+a block (``TRACEBACK_WARPS``), with the current choice row's window in
+registers and the next three rows' copied ahead into shared memory.  On CPU tensors each runs its plain version; on
 CUDA tensors it launches its kernel on the current stream or raises — it
 never falls back.  ``LAUNCHES`` counts each kernel's launches, and K1's and
 K2's by row placement (``rows_shared``, ``rows_global``), so a run can show
@@ -38,6 +40,7 @@ LAUNCHES = {
 }
 
 _SCRATCH_INTS = 66  # kScratchInts in csrc/wfa_distance.cu
+TRACEBACK_WARPS = 2  # K3's walks (warps) a block
 CENTRE_GRANULE = 32  # kCentreGranule: K4's centre is a multiple of it
 
 
@@ -323,9 +326,14 @@ def traceback_cuda(
     dist: torch.Tensor,              # [B] int32
     fin: torch.Tensor,               # [B] bool
     target_k: torch.Tensor,          # [B] int32
+    *, _warps: int = 0, _stats: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """K3: the fused rows [B, 4 + opw] int32 (distance, finished, n_ops, 0,
-    ops...)."""
+    ops...).  One warp walks each alignment; ``_warps`` pins the walks a
+    block (1-8; 0: ``TRACEBACK_WARPS``), and ``_stats``, an int32 [B, 4]
+    tensor on the device, receives each walk's counters (rows entered,
+    window loads, misses, entries with no load in flight); tests and
+    timings use them."""
     device = choice_words.device
     if device.type == "cpu":
         tb = traceback_torch.traceback_batch_device(
@@ -340,6 +348,9 @@ def traceback_cuda(
             f"choice table {tuple(choice_words.shape)} does not match "
             f"score_cap {tb_cfg.score_cap} and W {tb_cfg.wf_width}"
         )
+    warps = _warps or TRACEBACK_WARPS
+    if not 1 <= warps <= 8:
+        raise ValueError(f"K3 takes 1-8 warps a block, not {warps}")
     tensors = dict(
         choice_words=(choice_words, torch.int32, (C, B, W)),
         dist=(dist, torch.int32, (B,)), fin=(fin, torch.bool, (B,)),
@@ -347,6 +358,8 @@ def traceback_cuda(
     )
     if tb_cfg.banded:
         tensors["lo_trace"] = (lo_trace, torch.int32, (B, tb_cfg.lo_pad))
+    if _stats is not None:
+        tensors["_stats"] = (_stats, torch.int32, (B, 4))
     check_inputs(device, **tensors)
     opw = tb_cfg.opw
     out = torch.empty((B, 4 + opw), dtype=torch.int32, device=device)
@@ -358,7 +371,9 @@ def traceback_cuda(
         lo_trace.data_ptr() if tb_cfg.banded else None,
         tb_cfg.lo_pad if tb_cfg.banded else 0,
         dist.data_ptr(), fin.data_ptr(), target_k.data_ptr(),
-        B, W, pen.x, pen.o, pen.e, opw, out.data_ptr(), device.index, stream,
+        B, W, pen.x, pen.o, pen.e, opw, out.data_ptr(),
+        None if _stats is None else _stats.data_ptr(), warps, device.index,
+        stream,
     ))
     LAUNCHES["wfa_traceback"] += 1
     return out

@@ -1,4 +1,5 @@
-"""Seeded sequence pairs for the port's tests and its on-card smoke run.
+"""Seeded sequence pairs and traceback inputs for the port's tests and its
+on-card smoke run.
 
 ``random_pairs`` draws DNA pairs with lengths in a range and a per-pair error
 rate, some containing ``N`` and some empty; ``EDGE_PAIRS`` are fixed pairs
@@ -6,11 +7,18 @@ that reach the extension's boundary cases (sequence ends inside and exactly
 at a 16-base word, the tail mask, empty and invalid sequences);
 ``long_run_pairs`` are near-identical pairs of a few kbp whose matching
 runs cross 512 bases and reach either end; ``ring_wide_pairs`` is the wide
-exact workload of ``bench.py::_bench_ring_wide_exact``.
+exact workload of ``bench.py::_bench_ring_wide_exact``; ``edge_pairs``
+start their walk back at either end of a row of W diagonals.
+``forged_walks`` and ``overflow_walks`` are K3 inputs no aligner gives:
+random (corrupt) choice tables and a stream longer than ``opw`` words.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..ops import engine_torch, traceback_torch
+from ..types import Penalties
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 
@@ -129,3 +137,56 @@ def ring_wide_pairs(seed: int = 7, n: int = 16,
         t[rng.choice(length, size=k, replace=False)] = rng.choice(_BASES, size=k)
         pairs.append((bytes(p), bytes(t)))
     return pairs
+
+
+def edge_pairs(rng: np.random.Generator, width: int,
+               n: int) -> list[tuple[bytes, bytes]]:
+    """``n`` pairs whose walk back starts 4 to 6 diagonals from either end
+    of a row of ``width`` diagonals (k = +-(width/2 - 4 .. 6)): a random
+    150-base pattern and, in turn, a text that is it plus a tail of that
+    length, or the other way round."""
+    pairs = []
+    for i in range(n):
+        gap = width // 2 - 4 - int(rng.integers(0, 3))
+        pat = bytes(b"ACGT"[c] for c in rng.integers(0, 4, 150))
+        tail = bytes(b"ACGT"[c] for c in rng.integers(0, 4, gap))
+        pairs.append((pat, pat + tail) if i % 2 else (pat + tail, pat))
+    return pairs
+
+
+def forged_walks(rng: np.random.Generator, tb: traceback_torch.TracebackConfig,
+                 n: int, dist=None, device="cpu"):
+    """K3 inputs ``(words, lo_trace or None, distance, finished, target_k)``
+    for ``n`` walks over a random table and lo_trace, as a corrupt table
+    gives: walks that leave the window or the row, run past the rows or read
+    garbage lo.  Distances are random below 8 * num_chunks + 40 unless
+    ``dist`` gives them."""
+    C, W = tb.num_chunks, tb.wf_width
+    words = rng.integers(-2**31, 2**31, (C, n, W), dtype=np.int64).astype(np.int32)
+    lo = (rng.integers(-W, W, (n, tb.lo_pad)).astype(np.int32)
+          if tb.banded else None)
+    if dist is None:
+        dist = rng.integers(0, 8 * C + 40, n)
+    fin = rng.random(n) < 0.9
+    tk = rng.integers(-W // 2, W // 2, n).astype(np.int32)
+    return tuple(None if a is None else torch.from_numpy(a).to(device)
+                 for a in (words, lo, np.asarray(dist, np.int32), fin, tk))
+
+
+def overflow_walks(device="cpu"):
+    """``(tb, words, lo_trace, distance, finished, target_k)``: every choice
+    0x1 (M from I, I opened) under (1,0,1), two ops a score and k down one a
+    score, lo_trace following k with the walk at lane 5.  Distance 1000
+    walks 2000 ops to the origin; 1030 needs 2060 of the 2048 a stream
+    holds; the third walk ends off the origin."""
+    cap = 1016
+    tb = traceback_torch.TracebackConfig(Penalties(1, 0, 1), 32, cap, banded=True,
+                                         lo_pad=engine_torch.lo_pad(cap))
+    dist = torch.tensor([1000, 1030, 1000], dtype=torch.int32)
+    tk = torch.tensor([1000, 1030, 990], dtype=torch.int32)
+    words = torch.full((tb.num_chunks, 3, 32), 0x11111111, dtype=torch.int32)
+    s = torch.arange(tb.lo_pad)
+    # Column s: k at score s is tk - (dist - s); lo puts it at lane 5.
+    lo = torch.stack([t - (d - s) - 5 for t, d in zip(tk.tolist(), dist.tolist())])
+    return (tb, *(t.to(device) for t in (words, lo.to(torch.int32), dist,
+                                         torch.ones(3, dtype=torch.bool), tk)))
