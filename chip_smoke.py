@@ -29,8 +29,17 @@ with its cells and edge traffic, and K1 against K4 at W=3840; the 16 x 5
 kbp ring-wide set (exact, W=9216) on K4; the ring-row probe at two sizes;
 the speed-of-light calibration kernels and the wide-gather probe
 (sol_calibrate.cu, gather_probe.cu), held against their plain versions and
-timed at the TPU script's counts for one tile and for the card full; and
-the CLI's --profile trace, which must name K1.  Every phase prints one line
+timed at the TPU script's counts for one tile and for the card full; the
+CLI's --profile trace, which must name K1; the data-parallel layer
+(wfa_tpu_torch/parallel/mesh.py): K1, K2 + K3 and K4 on HiFi x8 and wide10k
+as two blocks on two streams of the card and over data_mesh(), equal to one
+launch bit for bit with one launch a block, their traced kernel spans, and
+align_pairs with data_parallel over two blocks against data_parallel=False
+and the stored references; two processes in a gloo group on localhost, each
+running the CLI on its strided half of wfa.utest.seq, whose gathered and
+merged scores equal the golden file; and probe_order: _probe_distances
+launches K1 once at W=128, and align_pairs gives the same results with and
+without it.  Every phase prints one line
 with its seconds; any failure ends the run with a nonzero exit code.  The
 line before the last lists every kernel with its launches on the main
 paths, error against its plain version, times and bound; the last line is
@@ -41,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -110,6 +120,8 @@ def main() -> int:
         traceback_torch,
     )
     from wfa_tpu_torch.ops.packing import pack_batch
+    from wfa_tpu_torch.parallel import distributed
+    from wfa_tpu_torch.parallel import mesh as parallel_mesh
     from wfa_tpu_torch.schedule import build_schedule, cone_radii
     from wfa_tpu_torch.utils.device_query import describe
     from wfa_tpu_torch.utils.io import read_seq_file
@@ -1334,6 +1346,248 @@ def main() -> int:
             f"({len(kernels)} kernel events)")
     phase("profile", t0, f"trace.json: {len(events)} events, {len(kernels)} "
           f"kernel events, {len(k1)} of K1 ({sum(e['dur'] for e in k1):.3f} us)")
+
+    # ---- 16. data-parallel: parallel/mesh.py, blocks on the card's streams ----
+    t0 = time.perf_counter()
+
+    def kernel_trace(fn):
+        """fn's K1-K4 launches in a torch.profiler trace: (us from the first
+        one's start to the last one's end, us summed, launches)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = ROOT / "build" / "profile" / "data_parallel.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        ks = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"
+              and re.search(r"wfa_(kernel|traceback)", e["name"])]
+        require(ks, "data-parallel: the trace names no K1-K4 kernel")
+        span = max(e["ts"] + e["dur"] for e in ks) - min(e["ts"] for e in ks)
+        return span, sum(e["dur"] for e in ks), len(ks)
+
+    pen = Penalties(2, 3, 1)
+    two = [dev, dev]
+    meshes = [("[cuda:0, cuda:0]", two), ("data_mesh()", parallel_mesh.data_mesh())]
+    hcfg = engine_torch.EngineConfig(pen, 3000, 512, 25)
+    hccfg, htb = cigar_configs(pen, 3000, 512, 25)
+    dp_lines = []
+    for name, dcfg, dccfg, dtb, dargs in (
+        ("HiFi x8", hcfg, hccfg, htb, hifi_args),
+        ("wide10k", cfg10, ccfg10, tb10, args10),
+    ):
+        k1 = "wfa_distance_ring" if dcfg.ring_global else "wfa_distance"
+        k2 = "wfa_cigar_ring" if dccfg.ring_global else "wfa_cigar"
+        one_d = engine_cuda.align_batch_cuda(dcfg, *dargs)
+        one_c = engine_cuda.align_cigar_cuda(dccfg, dtb, *dargs).cpu()
+        torch.cuda.synchronize()
+        for mname, m in meshes:
+            blocks = min(len(m), dargs[0].shape[0])
+            reset_launches()
+            split_d = parallel_mesh.align_batch_pallas_sharded(dcfg, m, *dargs)
+            require(engine_cuda.LAUNCHES[k1] == blocks,
+                    f"data-parallel {name} {mname}: {engine_cuda.LAUNCHES[k1]} "
+                    f"launches of {k1}, expected {blocks}")
+            require(torch.equal(split_d["distance"], one_d["distance"].cpu())
+                    and torch.equal(split_d["finished"], one_d["finished"].cpu()),
+                    f"data-parallel {name} {mname}: distances differ from one launch")
+            reset_launches()
+            split_c = parallel_mesh.align_cigar_fused_sharded(dccfg, dtb, m, *dargs)
+            require(engine_cuda.LAUNCHES[k2] == blocks
+                    and engine_cuda.LAUNCHES["wfa_traceback"] == blocks,
+                    f"data-parallel {name} {mname}: launches "
+                    f"{dict(engine_cuda.LAUNCHES)}, expected {blocks} of {k2} and K3")
+            require(torch.equal(split_c, one_c),
+                    f"data-parallel {name} {mname}: CIGAR rows differ from one launch")
+        # Kernel time of the split against the one launch (a finding, not a
+        # target), from the card's own trace: the split's first call, and a
+        # call once every stream of PyTorch's pool (32 a device) has run a
+        # block, so that no block allocates device memory between launches
+        # (an allocation there keeps two streams' kernels from overlapping).
+        spans = []
+        for mode, one_fn, two_fn in (
+            ("distance", lambda: engine_cuda.align_batch_cuda(dcfg, *dargs),
+             lambda: parallel_mesh.align_batch_pallas_sharded(dcfg, two, *dargs)),
+            ("CIGAR K2+K3", lambda: engine_cuda.align_cigar_cuda(dccfg, dtb, *dargs),
+             lambda: parallel_mesh.align_cigar_fused_sharded(dccfg, dtb, two, *dargs)),
+        ):
+            one_t = kernel_trace(one_fn)
+            first = kernel_trace(two_fn)
+            for _ in range(34):
+                two_fn()
+            warm = kernel_trace(two_fn)
+            spans.append(
+                f"{mode} one launch {one_t[0] / 1e3:.3f} ms, two blocks "
+                f"{first[0] / 1e3:.3f} ms first call ({first[1] / 1e3:.3f} summed), "
+                f"{warm[0] / 1e3:.3f} ms warm ({warm[1] / 1e3:.3f} summed, "
+                f"{warm[2]} launches)")
+        host = {}
+        for blocks_n in (1, 2, 2, 1):
+            t1 = time.perf_counter()
+            parallel_mesh.align_batch_pallas_sharded(dcfg, [dev] * blocks_n, *dargs)
+            host.setdefault(blocks_n, []).append((time.perf_counter() - t1) * 1e3)
+        dp_lines.append(
+            f"{name}: " + "; ".join(spans) + "; the sharded distance call on "
+            f"the host, 1 block {host[1][0]:.3f}, {host[1][1]:.3f} ms, 2 blocks "
+            f"{host[2][0]:.3f}, {host[2][1]:.3f} ms")
+
+    # align_pairs with data_mesh() giving the card twice, against
+    # data_parallel=False, in turns.
+    real_data_mesh = parallel_mesh.data_mesh
+    dp_res = {}
+    for mode, want_cigar in (("distance", False), ("cigar", True)):
+        dopts_dp = AlignmentOptions(penalties=pen, max_error=3000, band=25,
+                                    band_width=512, compute_cigar=want_cigar,
+                                    backend="cuda")
+        key = "wfa_cigar" if want_cigar else "wfa_distance"
+        walls = {False: [], True: []}
+        res_dp = {}
+        for split_on in (False, True, True, False):
+            parallel_mesh.data_mesh = lambda devices=None: two
+            try:
+                reset_launches()
+                t1 = time.perf_counter()
+                res_dp[split_on] = align_pairs(pats, txts, dataclasses.replace(
+                    dopts_dp, data_parallel=split_on))
+                torch.cuda.synchronize()
+                walls[split_on].append((time.perf_counter() - t1) * 1e3)
+                launches_dp = dict(engine_cuda.LAUNCHES)
+            finally:
+                parallel_mesh.data_mesh = real_data_mesh
+            blocks = 2 if split_on else 1
+            require(launches_dp[key] == blocks and launches_dp["wfa_traceback"]
+                    == (blocks if want_cigar else 0),
+                    f"data-parallel align_pairs ({mode}, data_parallel="
+                    f"{split_on}): launches {launches_dp}, expected {blocks}")
+        require(res_dp[True] == res_dp[False], f"data-parallel align_pairs "
+                f"({mode}) differs from data_parallel=False")
+        want_ref = cref if want_cigar else ref
+        require([r.error for r in res_dp[True]] == want_ref["distance"] * HIFI_REPS
+                and (not want_cigar
+                     or [r.cigar for r in res_dp[True]] == cref["cigar"] * HIFI_REPS),
+                f"data-parallel align_pairs ({mode}) differs from the stored reference")
+        dp_res[mode] = walls
+    phase("data-parallel", t0,
+          f"sharded K1, K2+K3 and K4 over {', '.join(m for m, _ in meshes)} "
+          f"({len(meshes[1][1])} card(s) visible) equal one launch bit for bit, "
+          "one launch a block; " + "; ".join(dp_lines) + "; align_pairs over "
+          "two blocks equal to data_parallel=False and the stored references, "
+          "ms in turns (False, True, True, False): " + ", ".join(
+              f"{k} data_parallel=False {w[False][0]:.3f}, {w[False][1]:.3f}, "
+              f"True {w[True][0]:.3f}, {w[True][1]:.3f}"
+              for k, w in dp_res.items()) + f"; [{smi}]")
+
+    # ---- 17. multihost: two processes, a gloo group, the CLI on the card ----
+    t0 = time.perf_counter()
+    mh_dir = ROOT / "build" / "multihost"
+    mh_dir.mkdir(parents=True, exist_ok=True)
+    mh_out = mh_dir / "scores.out"
+    for stale in mh_dir.glob("scores.out*"):
+        stale.unlink()
+    worker = (
+        "import sys, time\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "from wfa_tpu_torch import cli\n"
+        "from wfa_tpu_torch.ops import engine_cuda\n"
+        "from wfa_tpu_torch.parallel import distributed\n"
+        "pid, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]\n"
+        "distributed.initialize(f'localhost:{port}', 2, pid)\n"
+        "t = time.perf_counter()\n"
+        "assert cli.main(['-i', 'tests/data/wfa.utest.seq', '-g', '1,2,1', '-e',\n"
+        "                 '10000', '--backend', 'cuda', '-o', out]) == 0\n"
+        "assert engine_cuda.LAUNCHES['wfa_distance'] > 0, engine_cuda.LAUNCHES\n"
+        "with open(f'{out}.{pid}') as f:\n"
+        "    local = np.array([int(ln.split()[0]) for ln in f if ln.strip()],\n"
+        "                     dtype=np.int32)\n"
+        "g = distributed.allgather_scores(local, total=305)\n"
+        "if pid == 0:\n"
+        "    merged = distributed.merge_sharded_scores(list(g), 305)\n"
+        "    np.savetxt(f'{out}.gathered', merged, fmt='%d')\n"
+        "torch.distributed.destroy_process_group()\n"
+        "print(f'OK {pid}: {len(local)} pairs in {time.perf_counter() - t:.2f}s, '\n"
+        "      f'launches {dict(engine_cuda.LAUNCHES)}')\n"
+    )
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [
+        subprocess.Popen([sys.executable, "-c", worker, str(pid), str(port),
+                          str(mh_out)], cwd=ROOT, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for pid in (0, 1)
+    ]
+    try:
+        mh_logs = [proc.communicate(timeout=300)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    require(all(proc.returncode == 0 for proc in procs),
+            "multihost: a process failed:\n" + "\n".join(
+                log[-3000:] for log in mh_logs))
+    gold_p0 = [int(ln.split()[0]) for ln in
+               (DATA / "results" / "test.score.affine.p0.alg").read_text().splitlines()
+               if ln.strip()]
+    merged = np.loadtxt(f"{mh_out}.gathered", dtype=np.int64).tolist()
+    require(merged == gold_p0, "multihost: the gathered scores differ from "
+            "test.score.affine.p0.alg")
+    files = [np.array([int(ln.split()[0]) for ln in
+                       Path(f"{mh_out}.{pid}").read_text().splitlines() if ln.strip()])
+             for pid in (0, 1)]
+    require(distributed.merge_sharded_scores(files, len(gold_p0)).tolist() == gold_p0,
+            "multihost: the two output files merged differ from test.score.affine.p0.alg")
+    oks = [ln for log in mh_logs for ln in log.splitlines() if ln.startswith("OK ")]
+    phase("multihost", t0,
+          f"2 processes on cuda:0, gloo on localhost:{port}; {'; '.join(oks)}; "
+          f"the allgather ({len(merged)} scores) and the two files "
+          f"({len(files[0])} + {len(files[1])} lines) merged equal "
+          f"test.score.affine.p0.alg; [{smi}]")
+
+    # ---- 18. probe-order: K1 at W=128 measures the tiling hints ----
+    t0 = time.perf_counter()
+    popts = AlignmentOptions(penalties=pen, max_error=3000, band=25,
+                             band_width=512, backend="cuda")
+    align_pairs(pats[:8], txts[:8], dataclasses.replace(popts, probe_order=True))
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    hints = aligner._probe_distances(pats, txts, list(range(n)), pen, 3000, 25, dev)
+    probe_s = time.perf_counter() - t1
+    require(engine_cuda.LAUNCHES["wfa_distance"] == 1,
+            f"probe-order: _probe_distances launched {dict(engine_cuda.LAUNCHES)}")
+    pcfg = engine_torch.EngineConfig(pen, 3000, 128, 25)
+    probe_ms, pout = cuda_ms(lambda: engine_cuda.align_batch_cuda(pcfg, *hifi_args), 5)
+    want_hints = np.where(pout["finished"].cpu().numpy(),
+                          pout["distance"].cpu().numpy(), 1 << 30)
+    require(hints.tolist() == want_hints.astype(np.float64).tolist(),
+            "probe-order: the hints differ from K1 at W=128")
+    walls = {False: [], True: []}
+    probe_res = {}
+    for order in (False, True, True, False):
+        reset_launches()
+        t1 = time.perf_counter()
+        probe_res[order] = align_pairs(pats, txts, dataclasses.replace(
+            popts, probe_order=order))
+        torch.cuda.synchronize()
+        walls[order].append((time.perf_counter() - t1) * 1e3)
+        require(engine_cuda.LAUNCHES["wfa_distance"] == (2 if order else 1),
+                f"probe-order={order}: launches {dict(engine_cuda.LAUNCHES)}")
+    require(probe_res[True] == probe_res[False],
+            "probe-order: probe_order=True changes the results")
+    require([r.error for r in probe_res[True]] == ref["distance"] * HIFI_REPS,
+            "probe-order: distances differ from the stored reference")
+    phase("probe-order", t0,
+          f"{n} pairs: the probe (K1, W=128, band 25) {probe_ms:.3f} ms on the "
+          f"card, {probe_s * 1e3:.3f} ms for _probe_distances, "
+          f"{int((want_hints < (1 << 30)).sum())}/{n} finished in the band; "
+          f"align_pairs probe_order=False {', '.join(f'{v:.3f}' for v in walls[False])} ms, "
+          f"True {', '.join(f'{v:.3f}' for v in walls[True])} ms, results equal; [{smi}]")
 
     print(json.dumps({"kernels": [
         {

@@ -17,8 +17,10 @@ edges in global memory, ``ring_global``): the same outputs as the plain
 versions and as K1/K2 where both run, also with a centre pinned narrower
 than the cone, so that cells cross from shared to global memory.  The ring-row probe (csrc/ring_bw.cu): the ring and
 the sums equal.  The calibration kernels (csrc/sol_calibrate.cu) and the
-wide-gather probe (csrc/gather_probe.cu): outputs equal.  Tolerance 0
-throughout.
+wide-gather probe (csrc/gather_probe.cu): outputs equal.  The sharded
+functions of parallel/mesh.py with two blocks on the card (two streams) and
+``align_pairs`` with ``data_parallel`` over them: outputs equal one launch's
+and one device's.  Tolerance 0 throughout.
 
 Needs an NVIDIA GPU and nvcc; without them every test skips.  The file
 imports no jax, so on a machine without it run it with
@@ -31,9 +33,11 @@ import numpy as np
 import pytest
 import torch
 
+from wfa_tpu_torch import AlignmentOptions, align_pairs
 from wfa_tpu_torch.ops import (
     engine_cuda, engine_torch, gather_probe, ring_bw, sol_calibrate, traceback_torch,
 )
+from wfa_tpu_torch.parallel import mesh as parallel_mesh
 from wfa_tpu_torch.ops.packing import pack_batch
 from wfa_tpu_torch.schedule import build_schedule
 from wfa_tpu_torch.types import Penalties
@@ -358,6 +362,78 @@ def test_k4_refuses_a_band(device):
         torch.cuda.current_stream(device).cuda_stream,
     )
     assert rc != 0
+
+
+# (band, W, ring_global): K1/K2 banded and exact, and K4 at a window wider
+# than a shared ring (edges in global memory).
+_SHARDED_CASES = [(25, 512, False), (-1, 256, False), (-1, 4096, True)]
+
+
+@pytest.mark.parametrize("band,width,ring", _SHARDED_CASES,
+                         ids=["banded", "exact", "k4"])
+def test_sharded_functions_equal_one_launch(device, band, width, ring):
+    """parallel/mesh.py with two blocks on one card (two streams), 33 and
+    32 pairs: each sharded function's outputs equal one launch's, bit for
+    bit, and each kernel was launched once a block."""
+    pen = Penalties(2, 3, 1)
+    rng = np.random.default_rng(width + band)
+    pairs = EDGE_PAIRS + random_pairs(rng, 51, 10, 600)
+    args = _tensors(pairs, device, invalid_every=9)
+    two = [device, device]
+    k1 = "wfa_distance_ring" if ring else "wfa_distance"
+    k2 = "wfa_cigar_ring" if ring else "wfa_cigar"
+
+    cfg = engine_torch.EngineConfig(pen, 120, width, band, ring_global=ring)
+    one = engine_cuda.align_batch_cuda(cfg, *args)
+    before = dict(engine_cuda.LAUNCHES)
+    split = parallel_mesh.align_batch_pallas_sharded(cfg, two, *args)
+    assert engine_cuda.LAUNCHES[k1] == before[k1] + 2
+    for k in ("distance", "finished"):
+        assert torch.equal(split[k], one[k].cpu()), k
+
+    ccfg, tb = _cigar_configs(pen, 120, width, band, ring_global=ring)
+    one = engine_cuda.align_cigar_cuda(ccfg, tb, *args)
+    before = dict(engine_cuda.LAUNCHES)
+    split = parallel_mesh.align_cigar_fused_sharded(ccfg, tb, two, *args)
+    assert engine_cuda.LAUNCHES[k2] == before[k2] + 2
+    assert engine_cuda.LAUNCHES["wfa_traceback"] == before["wfa_traceback"] + 2
+    assert torch.equal(split, one.cpu())
+    assert int((one[:, 2] > 0).sum()) >= 24
+
+    tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args)
+    walk = (tables["choice_words"], tables.get("lo_trace"), tables["distance"],
+            tables["finished"], args[3] - args[2])
+    before = dict(engine_cuda.LAUNCHES)
+    split = parallel_mesh.traceback_batch_sharded(tb, two, *walk)
+    assert engine_cuda.LAUNCHES["wfa_traceback"] == before["wfa_traceback"] + 2
+    assert torch.equal(split, engine_cuda.traceback_cuda(tb, *walk).cpu())
+
+    # The plain engine split over the card's streams, and from host tensors.
+    plain = engine_torch.align_batch_device(cfg, *args)
+    split = parallel_mesh.align_batch_sharded(cfg, two, *(a.cpu() for a in args))
+    for k in ("distance", "finished"):
+        assert torch.equal(split[k], plain[k].cpu()), k
+
+
+@pytest.mark.parametrize("cigar", [False, True], ids=["distance", "cigar"])
+def test_align_pairs_data_parallel_equals_one_device(device, monkeypatch, cigar):
+    """align_pairs(backend='cuda') with data_mesh() giving the card twice:
+    the same results as data_parallel=False, two launches a chunk."""
+    monkeypatch.setattr(parallel_mesh, "data_mesh",
+                        lambda devices=None: [device, device])
+    rng = np.random.default_rng(17)
+    pairs = EDGE_PAIRS + random_pairs(rng, 90, 10, 900, 0.2)
+    pats = [p for p, _ in pairs]
+    txts = [t for _, t in pairs]
+    for band in (-1, 25):
+        opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=150,
+                                band=band, compute_cigar=cigar, backend="cuda")
+        one = align_pairs(pats, txts, dataclasses.replace(opts, data_parallel=False))
+        before = dict(engine_cuda.LAUNCHES)
+        split = align_pairs(pats, txts, opts)
+        key = "wfa_cigar" if cigar else "wfa_distance"
+        assert engine_cuda.LAUNCHES[key] - before[key] >= 2
+        assert split == one
 
 
 @pytest.mark.parametrize("shape,steps", [((3, 15, 64), 37), ((5, 15, 1024), 300)])

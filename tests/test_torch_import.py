@@ -27,6 +27,8 @@ PORT_FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_stage_times.py",
     ROOT / "tools" / "torch_ring_bw.py", ROOT / "tools" / "torch_sol_calibrate.py",
     ROOT / "tools" / "torch_gather_probe.py", ROOT / "tools" / "torch_k1k2_times.py",
+    ROOT / "examples" / "torch_auto_example.py",
+    ROOT / "examples" / "torch_manual_example.py",
 ]
 
 

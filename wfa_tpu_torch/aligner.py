@@ -15,6 +15,12 @@ tensors at the XLA route's window widths, decoding its per-step choice
 table with ``native.traceback_batch``, so its results equal
 ``wfa_tpu.align_pairs(backend='xla')``; ``auto``, the default, is ``cuda``:
 without a CUDA device both raise, and only ``torch`` runs on the CPU.
+
+With ``data_parallel`` (the default) and more than one device in
+``parallel.mesh.data_mesh()``, the ``cuda`` route splits each launch's batch
+over those devices (``parallel/mesh.py``).  With ``probe_order`` it orders
+the pairs within long-read tiers by distances measured with K1 at a narrow
+band (``_probe_distances``) in place of the host's divergence estimate.
 """
 from __future__ import annotations
 
@@ -28,7 +34,10 @@ from .ops import _build, engine_cuda, engine_torch
 from .ops.engine_torch import EngineConfig, batch_to_tensors
 from .ops.packing import _ACGT, pack_batch
 from .ops.traceback_torch import TracebackConfig
-from .params import AlignmentOptions, default_band_width, default_max_error
+from .parallel import mesh as parallel_mesh
+from .params import (
+    AUTO_BAND_INTERVAL, AlignmentOptions, default_band_width, default_max_error,
+)
 from .schedule import build_schedule
 from .traceback import recover_cigar, recover_cigar_from_stream
 from .types import MAX_SEQ_LEN, AlignmentResult
@@ -214,9 +223,19 @@ def _distance_call_batch(opts: AlignmentOptions, ring: int) -> int:
 def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
                    results, need_cpu) -> None:
     """One tier on K1 (distance) or K2 + K3 (CIGAR), with K4 in place of K1
-    or K2 when the window takes the global ring."""
-    device = torch.device("cuda", torch.cuda.current_device())
-    smem = engine_cuda.smem_optin(device)
+    or K2 when the window takes the global ring.  With ``data_parallel`` and
+    several devices in ``data_mesh()``, each chunk of up to ``ndev x call_b``
+    pairs is packed once and split over the devices, each launch within the
+    one-device caps."""
+    mesh = parallel_mesh.data_mesh() if opts.data_parallel else []
+    if len(mesh) > 1:
+        ndev = len(mesh)
+        device = torch.device("cpu")   # packed on the host, split by the mesh
+        smem = min(engine_cuda.smem_optin(d) for d in mesh)
+    else:
+        ndev = 1
+        device = torch.device("cuda", torch.cuda.current_device())
+        smem = engine_cuda.smem_optin(device)
     cfg, full_window, cert_bound, score_cap = _tier_geometry_cuda(
         plan, opts, max_error, band, smem
     )
@@ -243,12 +262,12 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
         call_b = _distance_call_batch(opts, ring)
     LOG.debug(
         "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s rows=%s "
-        "score_cap=%d call_b=%d full_window=%s cert_bound=%d", plan.tier,
-        len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, rows, score_cap,
-        call_b, full_window, cert_bound,
+        "score_cap=%d call_b=%d full_window=%s cert_bound=%d devices=%d",
+        plan.tier, len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, rows,
+        score_cap, call_b, full_window, cert_bound, ndev,
     )
-    for start in range(0, len(idxs), call_b):
-        chunk = idxs[start : start + call_b]
+    for start in range(0, len(idxs), ndev * call_b):
+        chunk = idxs[start : start + ndev * call_b]
         pats = [patterns[i] for i in chunk]
         txts = [texts[i] for i in chunk]
         pat_w, p_len, p_ok = pack_batch(pats, plan.nwords)
@@ -257,7 +276,12 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
         cigars: list[str | None] = [None] * len(chunk)
         if cigar:
             # One copy back per chunk: distances, flags, op counts, streams.
-            arr = engine_cuda.align_cigar_cuda(cfg, tb_cfg, *args).cpu().numpy()
+            if ndev > 1:
+                fused = parallel_mesh.align_cigar_fused_sharded(
+                    cfg, tb_cfg, mesh, *args)
+            else:
+                fused = engine_cuda.align_cigar_cuda(cfg, tb_cfg, *args)
+            arr = fused.cpu().numpy()
             dist = arr[:, 0]
             fin = arr[:, 1] != 0
             n_ops = arr[:, 2]
@@ -274,7 +298,10 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
                     for b in range(len(chunk))
                 ]
         else:
-            out = engine_cuda.align_batch_cuda(cfg, *args)
+            if ndev > 1:
+                out = parallel_mesh.align_batch_pallas_sharded(cfg, mesh, *args)
+            else:
+                out = engine_cuda.align_batch_cuda(cfg, *args)
             dist = out["distance"].cpu().numpy()
             fin = out["finished"].cpu().numpy()
         for b, i in enumerate(chunk):
@@ -288,6 +315,35 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
                 )
             else:
                 need_cpu[i] = True
+
+
+# The probe_order pass's window, and the hint of a pair it left unfinished.
+_PROBE_WIDTH = 128
+_PROBE_UNFINISHED = float(1 << 30)
+
+
+def _probe_distances(patterns, texts, run_idx, pen, max_error: int, band: int,
+                     device: torch.device) -> np.ndarray:
+    """``probe_order``'s first pass (``wfa_tpu/aligner.py:284-323``): the
+    distances K1 measures in one banded launch at W=128 (band ``band``, or
+    25 in exact mode), as float64 ordering hints; pairs it leaves unfinished
+    (band overflow, non-ACGT) get ``1 << 30`` and so tile together last.
+    On a CPU ``device`` the plain engine measures them."""
+    pats = [patterns[i] for i in run_idx]
+    txts = [texts[i] for i in run_idx]
+    lmax = max(max(len(p), len(t)) for p, t in zip(pats, txts))
+    pat_w, p_len, p_ok = pack_batch(pats, lmax // 16 + 2)
+    txt_w, t_len, t_ok = pack_batch(txts, lmax // 16 + 2)
+    cfg = EngineConfig(
+        penalties=pen, max_steps=max_error, wf_width=_PROBE_WIDTH,
+        band=band if band > 0 else AUTO_BAND_INTERVAL,
+    )
+    out = engine_cuda.align_batch_cuda(
+        cfg, *batch_to_tensors(pat_w, p_len, txt_w, t_len, p_ok & t_ok, device)
+    )
+    dist = out["distance"].cpu().numpy().astype(np.float64)
+    dist[~out["finished"].cpu().numpy()] = _PROBE_UNFINISHED
+    return dist
 
 
 def _run_tier_torch(patterns, texts, idxs, plan, opts, max_error, band,
@@ -382,15 +438,23 @@ def align_pairs(
     band = opts.resolved_band() if opts.banded else -1
 
     def _device_pass(run_idx: list[int], err: int) -> None:
-        # Divergence-ordered tiling for long reads (utils/presort.py).
+        # Cost-ordered tiling for long reads: distances measured by K1 at a
+        # narrow band (probe_order), else the host's divergence estimate
+        # (utils/presort.py).
         hints = None
         dev_lens = lens[run_idx]
         if dev_lens.size and int(dev_lens.max()) >= MIN_PRESORT_TIER:
-            hints = divergence_scores(
-                [patterns[i] for i in run_idx],
-                [texts[i] for i in run_idx],
-                dev_lens,
-            )
+            if opts.probe_order and backend == "cuda":
+                hints = _probe_distances(
+                    patterns, texts, run_idx, pen, err, band,
+                    torch.device("cuda", torch.cuda.current_device()),
+                )
+            else:
+                hints = divergence_scores(
+                    [patterns[i] for i in run_idx],
+                    [texts[i] for i in run_idx],
+                    dev_lens,
+                )
         for plan in _plan_tiers(dev_lens, opts, err, hints):
             idxs = [run_idx[j] for j in plan.indices]
             run_tier(patterns, texts, idxs, plan, opts, err, band,

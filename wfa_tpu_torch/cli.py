@@ -5,7 +5,9 @@ tools/aligner.c:60-187): one line ``-error<TAB>cigar`` per alignment, ``-O``
 appends the pattern and text.  ``--backend`` takes ``auto`` (the card, as
 ``cuda``), ``torch`` (the plain engine on the CPU) or ``cuda``.
 ``--profile DIR`` writes a ``torch.profiler`` trace of the alignment run to
-``DIR/trace.json``.
+``DIR/trace.json``.  In a run of several processes (one a host, each having
+called ``parallel.distributed.initialize``) each aligns its strided shard
+and writes ``OUTPUT.{process index}``.
 
     python -m wfa_tpu_torch.cli -i tests/data/wfa.utest.seq -g 1,2,1 -e 10000 -o scores.out
     python -m wfa_tpu_torch.cli -i tests/data/wfa.utest.seq -n 50 -g 1,2,1 -e 100 -x -c
@@ -20,6 +22,7 @@ import numpy as np
 
 from . import native
 from .aligner import BACKENDS, _resolve_backend
+from .parallel import distributed
 from .params import AlignmentOptions
 from .pipeline import align_pairs_pipelined
 from .types import Penalties
@@ -174,6 +177,22 @@ def main(argv: list[str] | None = None) -> int:
     except RuntimeError as exc:   # no CUDA device for auto or cuda
         LOG.error("%s", exc)
         return 1
+
+    # Multi-host run (the caller has run parallel.distributed.initialize):
+    # each process aligns its strided shard of the input and writes its own
+    # output file (merge offline or with allgather_scores).  max_error above
+    # was derived from the global first pair, so every process runs the
+    # same configuration.
+    if distributed.process_count() > 1:
+        pats, txts, args.output_file = distributed.shard_batch(
+            batch.patterns, batch.texts, args.output_file
+        )
+        batch = SequenceBatch(pats, txts)
+        LOG.info(
+            "multi-host: process %d/%d aligning %d pairs",
+            distributed.process_index(), distributed.process_count(),
+            len(batch),
+        )
 
     # Default pipeline batch = N/10 (lib/alignment_parameters.h:100-103).
     batch_size = args.batch_size

@@ -18,12 +18,14 @@ registers and the next three rows' copied ahead into shared memory.  On CPU tens
 CUDA tensors it launches its kernel on the current stream or raises — it
 never falls back.  ``LAUNCHES`` counts each kernel's launches, and K1's and
 K2's by row placement (``rows_shared``, ``rows_global``), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels; the counts are exact when
+several threads launch at once.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -38,6 +40,7 @@ LAUNCHES = {
     "wfa_distance_ring": 0, "wfa_cigar_ring": 0,
     "rows_shared": 0, "rows_global": 0,
 }
+_LAUNCHES_LOCK = threading.Lock()
 
 _SCRATCH_INTS = 66  # kScratchInts in csrc/wfa_distance.cu
 TRACEBACK_WARPS = 2  # K3's walks (warps) a block
@@ -110,10 +113,23 @@ def smem_optin(device: torch.device) -> int:
     return out.value
 
 
-@functools.lru_cache(maxsize=64)
 def _schedule_tensor(penalties, max_steps, score_limit, device):
+    """The kernels' [S, 7] int32 schedule on ``device`` (``_schedule_rows``)
+    for a launch on the current stream: the tensor is marked as used by that
+    stream, so that the cache dropping it cannot free it under a launch
+    still reading it."""
+    res = _schedule_rows(penalties, max_steps, score_limit, device)
+    if device.type == "cuda":
+        res[0].record_stream(torch.cuda.current_stream(device))
+    return res
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule_rows(penalties, max_steps, score_limit, device):
     """The kernels' [S, 7] int32 schedule: score, out slot, the three parent
-    slots, the cone radius and the out slot's previous cone radius."""
+    slots, the cone radius and the out slot's previous cone radius.  On a
+    CUDA device it is copied on the default stream and waited for, so that
+    a launch on any stream reads the whole table."""
     sched = build_schedule(penalties, max_steps, score_limit)
     radius, previous = cone_radii(penalties, max_steps, score_limit)
     rows = torch.stack([
@@ -123,6 +139,11 @@ def _schedule_tensor(penalties, max_steps, score_limit, device):
         )
     ], dim=1).to(torch.int32).contiguous()
     last = int(sched.score[-1]) if sched.num_steps else 0
+    if device.type == "cuda":
+        default = torch.cuda.default_stream(device)
+        with torch.cuda.stream(default):
+            rows = rows.to(device)
+        default.synchronize()
     return rows.to(device), sched.num_steps, sched.unfinished_score, last
 
 
@@ -254,10 +275,16 @@ def align_batch_cuda(
 def _count(kernel: str, ring_global: bool, rows_shared: bool) -> None:
     """One launch of K1/K2 (by row placement) or K4."""
     if ring_global:
-        LAUNCHES[kernel + "_ring"] += 1
-        return
-    LAUNCHES[kernel] += 1
-    LAUNCHES["rows_shared" if rows_shared else "rows_global"] += 1
+        _bump(kernel + "_ring")
+    else:
+        _bump(kernel, "rows_shared" if rows_shared else "rows_global")
+
+
+def _bump(*keys: str) -> None:
+    """Add one to each count, under the lock: threads launch at once."""
+    with _LAUNCHES_LOCK:
+        for key in keys:
+            LAUNCHES[key] += 1
 
 
 def cigar_tables_cuda(
@@ -375,7 +402,7 @@ def traceback_cuda(
         None if _stats is None else _stats.data_ptr(), warps, device.index,
         stream,
     ))
-    LAUNCHES["wfa_traceback"] += 1
+    _bump("wfa_traceback")
     return out
 
 

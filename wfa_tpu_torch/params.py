@@ -12,9 +12,9 @@ either package mean the same thing.
 * ``band``       — re-centering interval; <0 disables (exact mode), 0 means
   "auto" = 25 (tools/aligner.c:409-412).
 * ``tile_batch``, ``memory_budget_bytes`` — per-call batch sizing.
-
-``data_parallel`` (multi-device sharding, ROADMAP queue 1 item 10) and
-``probe_order`` (a TPU tiling pass, item 13) are not ported.
+* ``data_parallel`` — split each launch over this process's cards.
+* ``probe_order``  — order the pairs of long-read tiers by distances a
+  narrow-band K1 pass measures, in place of the host's estimate.
 """
 from __future__ import annotations
 
@@ -74,6 +74,15 @@ class AlignmentOptions:
     # "auto" (the card, as "cuda"), "torch" (the plain engine on the CPU)
     # or "cuda" (wfa_tpu_torch.aligner.BACKENDS).
     backend: str = "auto"
+    # Split each launch's batch over every device of
+    # parallel.mesh.data_mesh() (this process's cards; pure data
+    # parallelism).  Ignored with one device and by the plain engine.
+    data_parallel: bool = True
+    # Two-pass ordered tiling: a narrow-band (W=128) distance-only K1 pass
+    # measures each long-read pair's distance, and the main pass orders the
+    # pairs within each tier by it instead of by the host-side divergence
+    # estimate.  Results are the same either way; default off.
+    probe_order: bool = False
 
     def resolved_band(self) -> int:
         if self.band == 0:
