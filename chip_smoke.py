@@ -37,9 +37,15 @@ launch bit for bit with one launch a block, their traced kernel spans, and
 align_pairs with data_parallel over two blocks against data_parallel=False
 and the stored references; two processes in a gloo group on localhost, each
 running the CLI on its strided half of wfa.utest.seq, whose gathered and
-merged scores equal the golden file; and probe_order: _probe_distances
+merged scores equal the golden file; probe_order: _probe_distances
 launches K1 once at W=128, and align_pairs gives the same results with and
-without it.  Every phase prints one line
+without it; band recall on 128 x 20 kbp reads (tools/torch_nanopore_recall.py),
+uniform and burst: K4's certified exact references at W=6144, held against
+the CPU oracle, and K1 banded at W = 128, 256, 512 and 1024 (uniform: every
+pair finished and optimal at every width; burst: K1 equal to the plain
+engine on the card on pairs the band clips); HiFi x8 exact at W=1024 with
+the loop stopped at its certificate, every pair certified; and
+pack_batch_torch on the card equal to pack_batch.  Every phase prints one line
 with its seconds; any failure ends the run with a nonzero exit code.  The
 line before the last lists every kernel with its launches on the main
 paths, error against its plain version, times and bound; the last line is
@@ -119,7 +125,9 @@ def main() -> int:
         _build, engine_cuda, engine_torch, gather_probe, ring_bw, sol_calibrate,
         traceback_torch,
     )
-    from wfa_tpu_torch.ops.packing import pack_batch
+    from wfa_tpu_torch.ops.packing import (
+        pack_batch, pack_batch_torch, unpack_words, words_for_length,
+    )
     from wfa_tpu_torch.parallel import distributed
     from wfa_tpu_torch.parallel import mesh as parallel_mesh
     from wfa_tpu_torch.schedule import build_schedule, cone_radii
@@ -1588,6 +1596,173 @@ def main() -> int:
           f"{int((want_hints < (1 << 30)).sum())}/{n} finished in the band; "
           f"align_pairs probe_order=False {', '.join(f'{v:.3f}' for v in walls[False])} ms, "
           f"True {', '.join(f'{v:.3f}' for v in walls[True])} ms, results equal; [{smi}]")
+
+    # ---- 19. nanopore: 128 x 20 kbp at 6% error, K4 references, K1 banded ----
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_nanopore_recall as recall
+
+    def best_ms(fn, reps=3):
+        """The least of ``reps`` launches' CUDA-event times, after a warm-up."""
+        fn()
+        return min(cuda_ms(fn, 1)[0] for _ in range(reps))
+
+    def recall_lines(res):
+        return "; ".join(recall.row_line(row, len(res["exact"])) for row in res["rows"])
+
+    reset_launches()
+    nano = recall.card_recall(False, dev, n_check=16)
+    torch.cuda.synchronize()
+    nano_launches = dict(engine_cuda.LAUNCHES)
+    require(nano_launches["wfa_distance_ring"] == 1
+            and nano_launches["wfa_distance"] == len(recall.CARD_WIDTHS),
+            f"nanopore: launches {nano_launches}, expected one K4 and "
+            f"{len(recall.CARD_WIDTHS)} K1")
+    exact = nano["exact"]
+    require((int(exact.min()), int(exact.max())) == (2697, 2940),
+            f"nanopore: K4's distances span {exact.min()}..{exact.max()}, not "
+            "2697..2940")
+    require(all(row[1:3] == (len(exact), len(exact)) for row in nano["rows"]),
+            "nanopore: K1 left pairs unfinished or above the optimum: "
+            + recall_lines(nano))
+    nargs, nwp = nano["args"], nano["args"][0].shape[1]
+    k4_nano_ms = best_ms(lambda: engine_cuda.align_batch_cuda(recall.exact_config(),
+                                                              *nargs))
+    k1_nano = {}
+    for w in recall.CARD_WIDTHS:
+        bcfg = recall.banded_config(w)
+        k1_nano[w] = (best_ms(lambda: engine_cuda.align_batch_cuda(bcfg, *nargs)),
+                      engine_cuda.blocks_per_sm(bcfg, nwp, dev),
+                      engine_cuda.rows_fit(5, w, nwp, False, smem))
+    host_s = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        engine_cuda.align_batch_cuda(recall.banded_config(512), *nargs)["distance"].cpu()
+        host_s.append(time.perf_counter() - t1)
+    phase("nanopore", t0,
+          f"{len(exact)} pairs of 20 kbp, {nwp} words a row: K4 W=6144 "
+          f"(C={engine_cuda.centre_width(5, 6144, nwp, False, smem)}) "
+          f"{k4_nano_ms:.3f} ms, distances {exact.min()}..{exact.max()}, all "
+          f"certified below {recall.CERT_BOUND}, {len(nano['checked'])} equal to the "
+          f"CPU oracle; " + recall_lines(nano) + "; K1 " + ", ".join(
+              f"W={w} {ms:.3f} ms ({occ[0]} blocks of {occ[1]} threads an SM, rows "
+              f"{'shared' if fit else 'global'})" for w, (ms, occ, fit) in k1_nano.items())
+          + f"; W=512 call on the host {min(host_s) * 1e3:.3f} ms, "
+          f"{len(exact) / min(host_s):.1f} aln/s; launches {nano_launches}; [{smi}]")
+
+    # ---- 20. nanopore-burst: 1% error plus three 200-500 bp events ----
+    t0 = time.perf_counter()
+    reset_launches()
+    burst = recall.card_recall(True, dev)
+    torch.cuda.synchronize()
+    burst_launches = dict(engine_cuda.LAUNCHES)
+    require(burst_launches["wfa_distance_ring"] == 1
+            and burst_launches["wfa_distance"] == len(recall.CARD_WIDTHS),
+            f"nanopore-burst: launches {burst_launches}")
+    bexact = burst["exact"]
+    # K1 against the plain engine on the card at W=256, on pairs the band
+    # clips (score above the optimum or unfinished), filled up with others.
+    b256 = burst["outs"][256]
+    clipped = ~b256["finished"].cpu().numpy() | (b256["distance"].cpu().numpy() != bexact)
+    pick = np.concatenate([np.flatnonzero(clipped), np.flatnonzero(~clipped)])[:8]
+    sel = torch.from_numpy(pick).to(dev)
+    sub = tuple(t[sel].contiguous() for t in burst["args"])
+    bcfg = recall.banded_config(256)
+    got = engine_cuda.align_batch_cuda(bcfg, *sub)
+    t1 = time.perf_counter()
+    want = engine_torch.align_batch_device(bcfg, *sub)
+    torch.cuda.synchronize()
+    burst_plain_s = time.perf_counter() - t1
+    require(torch.equal(got["distance"], want["distance"])
+            and torch.equal(got["finished"], want["finished"])
+            and torch.equal(got["distance"], b256["distance"][sel]),
+            f"nanopore-burst: K1 differs from the plain engine at W=256 on pairs "
+            f"{pick.tolist()}")
+    max_err["wfa_distance"] = max(max_err["wfa_distance"], (
+        got["distance"] - want["distance"]).abs().max().item())
+    bargs = burst["args"]
+    k4_burst_ms = best_ms(lambda: engine_cuda.align_batch_cuda(recall.exact_config(),
+                                                               *bargs))
+    k1_burst = {w: best_ms(lambda: engine_cuda.align_batch_cuda(
+        recall.banded_config(w), *bargs)) for w in recall.CARD_WIDTHS}
+    phase("nanopore-burst", t0,
+          f"{len(bexact)} pairs, {bargs[0].shape[1]} words a row: K4 W=6144 "
+          f"{k4_burst_ms:.3f} ms, distances {bexact.min()}..{bexact.max()}, all "
+          f"certified, {len(burst['checked'])} equal to the CPU oracle; "
+          + recall_lines(burst) + "; K1 " + ", ".join(
+              f"W={w} {ms:.3f} ms" for w, ms in k1_burst.items())
+          + f"; W=256 on pairs {pick.tolist()} ({int(clipped[pick].sum())} clipped): "
+          f"K1 equal to the plain engine on the card ({burst_plain_s:.2f}s), "
+          f"distances {want['distance'].tolist()}, finished "
+          f"{want['finished'].int().tolist()}; launches {burst_launches}; [{smi}]")
+
+    # ---- 21. hifi-exact-certified: HiFi x8, exact, W=1024, stopped at the certificate ----
+    t0 = time.perf_counter()
+    pen = Penalties(2, 3, 1)
+    lmax = max(max(len(p), len(t)) for p, t in zip(pats, txts))
+    hnw = ((lmax // 16 + 8 + 127) // 128) * 128
+    hx_args = tensors(list(zip(pats, txts)), nw=hnw)
+    hx_cert = pen.o + pen.e * (1024 // 2 + 1)
+    # The Pallas score_cap = hx_cert + 1 stops the loop at d < score_cap.
+    hx_cfg = engine_torch.EngineConfig(pen, 3000, 1024, -1, score_limit=hx_cert)
+    reset_launches()
+    hx_out = engine_cuda.align_batch_cuda(hx_cfg, *hx_args)
+    torch.cuda.synchronize()
+    hx_launches = dict(engine_cuda.LAUNCHES)
+    require(hx_launches["wfa_distance"] == 1 and hx_launches["wfa_distance_ring"] == 0,
+            f"hifi-exact-certified: launches {hx_launches}, expected one K1")
+    hx_dist = hx_out["distance"].cpu().numpy()
+    require(bool(hx_out["finished"].all()) and bool((hx_dist < hx_cert).all()),
+            f"hifi-exact-certified: {int((~hx_out['finished']).sum())} unfinished, "
+            f"largest distance {hx_dist.max()} (certificate {hx_cert})")
+    n50 = len(ref["distance"])
+    require(bool((hx_dist[:n50] <= np.array(ref["distance"])).all())
+            and hx_dist.tolist() == hx_dist[:n50].tolist() * HIFI_REPS,
+            "hifi-exact-certified: an exact distance above the banded one, or "
+            "copies of a pair differ")
+    hard = np.argsort(hx_dist[:n50], kind="stable")[-8:]
+    oracle, _, _ = native.cpu_align_batch(
+        [pats[i] for i in hard], [txts[i] for i in hard], pen,
+        np.ones(len(hard), dtype=np.int8), False)
+    require(oracle.tolist() == hx_dist[hard].tolist(),
+            f"hifi-exact-certified: the CPU oracle differs on pairs {hard.tolist()}")
+    hx_ms = best_ms(lambda: engine_cuda.align_batch_cuda(hx_cfg, *hx_args))
+    hx_occ = engine_cuda.blocks_per_sm(hx_cfg, hnw, dev)
+    phase("hifi-exact-certified", t0,
+          f"{len(pats)} pairs, exact W=1024, score_limit {hx_cert}: K1 ({hx_occ[1]} threads a "
+          f"block, {hx_occ[0]} blocks an SM, rows "
+          f"{'shared' if engine_cuda.rows_fit(5, 1024, hnw, False, smem) else 'global'}) "
+          f"{hx_ms:.3f} ms ({len(pats) / hx_ms * 1e3:.1f} aln/s), all finished and certified "
+          f"below {hx_cert}, distances {hx_dist.min()}..{hx_dist.max()}, none above "
+          f"the banded reference; CPU oracle equal on pairs {sorted(hard.tolist())}; "
+          f"launches {hx_launches}; [{smi}]")
+
+    # ---- 22. pack-device: pack_batch_torch on the card against pack_batch ----
+    t0 = time.perf_counter()
+    pack_lines = []
+    for name, seqs in (("HiFi x8", pats + txts),
+                       ("20 kbp", nano["patterns"] + nano["texts"])):
+        lens = [len(s) for s in seqs]
+        ascii_np = np.zeros((len(seqs), max(lens)), dtype=np.uint8)
+        for i, s in enumerate(seqs):
+            ascii_np[i, :len(s)] = np.frombuffer(s, dtype=np.uint8)
+        nw_pack = words_for_length(ascii_np.shape[1])
+        t1 = time.perf_counter()
+        words, _, _ = pack_batch(seqs, nw_pack)
+        host_pack_ms = (time.perf_counter() - t1) * 1e3
+        ascii_t = torch.from_numpy(ascii_np).to(dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        pack_ms = best_ms(lambda: pack_batch_torch(ascii_t, lens_t))
+        got = pack_batch_torch(ascii_t, lens_t).cpu().numpy().view(np.uint32)
+        require(got.shape == words.shape and all(
+            np.array_equal(unpack_words(got[i], ln), unpack_words(words[i], ln))
+            for i, ln in enumerate(lens)),
+            f"pack-device: {name}: pack_batch_torch differs from pack_batch")
+        pack_lines.append(f"{name} ({len(seqs)} reads, [{len(seqs)}, {nw_pack}] "
+                          f"words): pack_batch_torch {pack_ms:.3f} ms on the card, "
+                          f"pack_batch {host_pack_ms:.3f} ms on the host")
+    phase("pack-device", t0, "2-bit fields equal inside every read; "
+          + "; ".join(pack_lines) + f"; [{smi}]")
 
     print(json.dumps({"kernels": [
         {

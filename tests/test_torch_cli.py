@@ -124,3 +124,37 @@ def test_cli_cigar_output_verbose_equal_between_clis(tmp_path):
             assert set(cols[2]) <= set("ACGTNacgtn")
             assert set(cols[3]) <= set("ACGTNacgtn")
     assert outs["wfa_tpu"] == outs["wfa_tpu_torch"]
+
+
+def _checker(name):
+    """tools/<name>.py as a module (the tools directory is no package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_torch_check_cigars_counts_as_check_cigars(tmp_path, capsys):
+    """The port's CIGAR checker and tools/check_cigars.py count the same
+    correct and incorrect lines of the port's CLI output, as written and
+    with two lines spoiled (a score, a CIGAR)."""
+    out = tmp_path / "res.out"
+    seq = str(DATA / "wfa.utest.seq")
+    assert main(["-i", seq, "-n", "20", "-g", "1,2,1", "-e", "100", "-x",
+                 "-o", str(out), "--backend", "torch"]) == 0
+    capsys.readouterr()
+    lines = out.read_text().splitlines()
+    spoiled = tmp_path / "spoiled.out"
+    score, cigar = lines[3].split("\t")[:2]
+    lines[3] = f"{int(score) - 1}\t{cigar}"
+    score, cigar = lines[7].split("\t")[:2]
+    lines[7] = f"{score}\t1I{cigar}"
+    spoiled.write_text("\n".join(lines) + "\n")
+    for path, want in ((out, "correct=20 incorrect=0"), (spoiled, "correct=18 incorrect=2")):
+        counts = []
+        for name in ("check_cigars", "torch_check_cigars"):
+            rc = _checker(name).main([str(path), "--seq", seq, "-g", "1,2,1"])
+            counts.append((rc, capsys.readouterr().out.strip()))
+        assert counts[0] == counts[1] == (int(path == spoiled), want)

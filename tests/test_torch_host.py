@@ -35,7 +35,9 @@ import wfa_tpu_torch.utils.presort as presort
 import wfa_tpu_torch.utils.verification as verification
 from wfa_tpu_torch.ops import packing
 from wfa_tpu_torch.schedule import build_schedule
-from wfa_tpu_torch.types import MAX_SEQ_LEN, OFFSET_NULL, AffineOp, Penalties
+from wfa_tpu_torch.types import (
+    MAX_SEQ_LEN, OFFSET_NULL, OPS_ASCII, AffineOp, GapOp, KernelResult, Penalties,
+)
 from wfa_tpu_torch.utils.synth import EDGE_PAIRS, random_pairs
 
 # Several test processes share the machine's cores with jax's; two
@@ -55,6 +57,12 @@ def test_types_match():
 
     assert (MAX_SEQ_LEN, OFFSET_NULL) == (t.MAX_SEQ_LEN, t.OFFSET_NULL)
     assert {m.name: int(m) for m in AffineOp} == {m.name: int(m) for m in t.AffineOp}
+    assert {m.name: int(m) for m in GapOp} == {m.name: int(m) for m in t.GapOp}
+    assert OPS_ASCII == t.OPS_ASCII
+    assert [(f.name, f.type) for f in dataclasses.fields(KernelResult)] == [
+        (f.name, f.type) for f in dataclasses.fields(t.KernelResult)]
+    assert dataclasses.asdict(KernelResult(7, True)) == dataclasses.asdict(
+        t.KernelResult(7, True))
     for pen in PENALTIES + [(-2, -3, -1)]:
         a, b = Penalties(*pen), TpuPenalties(*pen)
         assert (a.x, a.o, a.e, a.active_working_set) == (
@@ -232,6 +240,14 @@ def test_cigar_decoders_match(band):
             packed_args[0], lo_b, -32, pen, *packed_args[3:]) == (
             tpu_traceback.recover_cigar_packed(
                 packed_args[0], lo_b, -32, tpen, *packed_args[3:]))
+
+
+@pytest.mark.parametrize("pen", [(2, 3, 1), (1, 0, 1), (4, 1, 2)])
+def test_gotoh_distance_matches(pen):
+    pairs = EDGE_PAIRS + random_pairs(np.random.default_rng(sum(pen)), 12, 0, 200)
+    for p, t in pairs:
+        assert verification.gotoh_distance(p, t, Penalties(*pen)) == \
+            tpu_verification.gotoh_distance(p, t, TpuPenalties(*pen))
 
 
 def test_presort_and_penalty_parsing_match():

@@ -27,6 +27,7 @@ PORT_FILES = sorted((ROOT / "wfa_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tools" / "torch_stage_times.py",
     ROOT / "tools" / "torch_ring_bw.py", ROOT / "tools" / "torch_sol_calibrate.py",
     ROOT / "tools" / "torch_gather_probe.py", ROOT / "tools" / "torch_k1k2_times.py",
+    ROOT / "tools" / "torch_nanopore_recall.py", ROOT / "tools" / "torch_check_cigars.py",
     ROOT / "examples" / "torch_auto_example.py",
     ROOT / "examples" / "torch_manual_example.py",
 ]
@@ -52,9 +53,10 @@ def _imports_of(path: Path) -> list[str]:
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_source_imports_neither_wfa_tpu_nor_jax(path):
+    """Nor ``bench``, whose workloads the port's tools copy."""
     bad = [
         n for n in _imports_of(path)
-        if n.split(".")[0] in ("wfa_tpu", "jax", "jaxlib")
+        if n.split(".")[0] in ("wfa_tpu", "jax", "jaxlib", "bench")
     ]
     assert not bad, f"{path.name} imports {bad}"
 

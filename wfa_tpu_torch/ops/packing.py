@@ -9,10 +9,15 @@ extension is ``xor`` + ``clz / 2`` with no swizzle.
 
 Any non-ACGT base routes the pair to the CPU fallback, as does a sequence
 of length >= MAX_SEQ_LEN (sequence_packing_kernel.cu:54-76).
+
+``pack_ascii`` and ``unpack_words`` pack one sequence and unpack it again
+(round-trip tests); ``pack_batch_torch`` packs a zero-padded batch that is
+already a tensor, on its own device, in plain torch ops.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import native
 from ..types import MAX_SEQ_LEN
@@ -20,8 +25,43 @@ from ..utils.logger import LOG
 
 BASES_PER_WORD = 16
 
+# Reverse of the 2-bit encoding, for round-trip tests (cf. the UNPACK table
+# of the reference's tests/test_packing_kernel.cu:31).
+UNPACK = np.frombuffer(b"ACTG", dtype=np.uint8)
+
 _ACGT = np.zeros(256, dtype=bool)
 _ACGT[[ord(c) for c in "ACGTacgt"]] = True
+
+
+def words_for_length(length: int) -> int:
+    return (length + BASES_PER_WORD - 1) // BASES_PER_WORD
+
+
+def pack_ascii(seq: np.ndarray, out_words: int | None = None) -> tuple[np.ndarray, bool]:
+    """Pack an ASCII uint8 sequence into big-endian-ordered 2-bit u32 words.
+
+    Returns (packed_words[uint32], valid).  ``valid`` is False when the
+    sequence contains non-ACGT characters or is too long, in which case the
+    caller must route the pair to the CPU engine.
+    """
+    seq = np.ascontiguousarray(seq, dtype=np.uint8)
+    n = seq.shape[0]
+    valid = bool(_ACGT[seq].all()) and n < MAX_SEQ_LEN
+    nwords = words_for_length(n)
+    if out_words is None:
+        out_words = nwords
+    codes2 = ((seq & 6) >> 1).astype(np.uint32)
+    pad = nwords * BASES_PER_WORD - n
+    if pad:
+        codes2 = np.concatenate([codes2, np.zeros(pad, dtype=np.uint32)])
+    codes2 = codes2.reshape(nwords, BASES_PER_WORD)
+    shifts = np.arange(30, -2, -2, dtype=np.uint32)
+    words = (codes2 << shifts).sum(axis=1, dtype=np.uint32)
+    if out_words != nwords:
+        out = np.zeros(out_words, dtype=np.uint32)
+        out[: min(nwords, out_words)] = words[:out_words]
+        words = out
+    return words, valid
 
 
 def pack_batch(
@@ -93,3 +133,32 @@ def pack_batch(
             np.ascontiguousarray(by).view(">u4").astype(np.uint32)
         ).reshape(b, content_words)
     return out, lengths, valid
+
+
+def unpack_words(words: np.ndarray, length: int) -> np.ndarray:
+    """Round-trip helper: packed u32 words -> ASCII uint8 sequence."""
+    words = np.asarray(words, dtype=np.uint32)
+    shifts = np.arange(30, -2, -2, dtype=np.uint32)
+    codes = (words[:, None] >> shifts) & 3
+    return UNPACK[codes.reshape(-1)[:length]]
+
+
+def pack_batch_torch(ascii_batch: torch.Tensor, lengths) -> torch.Tensor:
+    """[B, Lmax] uint8 ASCII (zero padded) -> [B, ceil(Lmax/16)] int32 on
+    the same device, each word the u32 bit pattern ``pack_batch`` gives.
+
+    As the reference's on-device packing, the zero padding packs as 'A'
+    (code 0) and ``lengths`` is not read; no validity is computed.  torch's
+    uint32 has no shifts or reductions on CUDA, so the codes are combined
+    in int64: their 2-bit fields are disjoint, so the sum is their OR and
+    stays below 2**32.  The word is then narrowed to its int32 bit
+    pattern."""
+    b, lmax = ascii_batch.shape
+    nwords = words_for_length(lmax)
+    codes = ((ascii_batch & 6) >> 1).to(torch.int64)
+    pad = nwords * BASES_PER_WORD - lmax
+    if pad:
+        codes = torch.nn.functional.pad(codes, (0, pad))
+    shifts = torch.arange(30, -2, -2, dtype=torch.int64, device=codes.device)
+    words = (codes.view(b, nwords, BASES_PER_WORD) << shifts).sum(dim=2)
+    return (words - ((words >> 31) << 32)).to(torch.int32)

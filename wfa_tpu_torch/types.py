@@ -28,6 +28,19 @@ class AffineOp(IntEnum):
     DEL = 3
 
 
+# ASCII rendering of ops in CIGARs (lib/wfa_types.h:51).
+OPS_ASCII = ("?", "I", "X", "D")
+
+
+class GapOp(IntEnum):
+    """Gap provenance of I/D cells (lib/wfa_types.h:53-56).  EXTEND > OPEN,
+    so that offset ties prefer gap extension, as the reference's packed
+    64-bit max does (lib/kernels/sequence_alignment_kernel.cu:177-178)."""
+
+    OPEN = 1
+    EXTEND = 2
+
+
 @dataclasses.dataclass(frozen=True)
 class Penalties:
     """Gap-affine penalties; match is always 0 (lib/affine_penalties.h:25-30)."""
@@ -68,3 +81,11 @@ class AlignmentResult:
     # fallback was disabled (cpu_fallback=False): ``error``/``cigar`` are then
     # placeholders (lib/alignment_results.h:37).
     finished: bool = True
+
+
+@dataclasses.dataclass
+class KernelResult:
+    """One alignment's kernel result (lib/alignment_results.h:37-42)."""
+
+    distance: int
+    finished: bool

@@ -11,6 +11,10 @@ exact workload of ``bench.py::_bench_ring_wide_exact``; ``edge_pairs``
 start their walk back at either end of a row of W diagonals.
 ``forged_walks`` and ``overflow_walks`` are K3 inputs no aligner gives:
 random (corrupt) choice tables and a stream longer than ``opw`` words.
+``mutate_batch`` and ``mutate_bursts`` are the read models of the long-read
+workloads (``bench.py``'s Nanopore-like reads and the burst reads of
+``tools/nanopore_recall.py``), draw for draw, so that a seed gives the same
+reads byte for byte.
 """
 from __future__ import annotations
 
@@ -190,3 +194,58 @@ def overflow_walks(device="cpu"):
     lo = torch.stack([t - (d - s) - 5 for t, d in zip(tk.tolist(), dist.tolist())])
     return (tb, *(t.to(device) for t in (words, lo.to(torch.int32), dist,
                                          torch.ones(3, dtype=torch.bool), tk)))
+
+
+def mutate_batch(rng: np.random.Generator, seqs: list[bytes],
+                 err: float) -> list[bytes]:
+    """Substitutions and single-base indels at about ``err`` a base: of
+    ``int(len * err)`` random positions 60% substituted, 20% deleted and
+    20% inserted after.  ``bench.py::_mutate_batch``, draw for draw."""
+    out = []
+    for s in seqs:
+        arr = np.frombuffer(s, dtype=np.uint8).copy()
+        n = len(arr)
+        nmut = int(n * err)
+        pos = rng.integers(0, n, size=nmut)
+        kinds = rng.random(nmut)
+        sub_pos = pos[kinds < 0.6]
+        arr[sub_pos] = _BASES[rng.integers(0, 4, size=len(sub_pos))]
+        del_pos = np.unique(pos[(kinds >= 0.6) & (kinds < 0.8)])
+        keep = np.ones(n, dtype=bool)
+        keep[del_pos] = False
+        arr = arr[keep]
+        ins_pos = np.sort(pos[kinds >= 0.8]) % max(len(arr), 1)
+        arr = np.insert(arr, ins_pos, _BASES[rng.integers(0, 4, size=len(ins_pos))])
+        out.append(arr.tobytes())
+    return out
+
+
+def mutate_bursts(rng: np.random.Generator, seqs: list[bytes],
+                  bg_err: float = 0.01, n_bursts: int = 3,
+                  indel: tuple[int, int] = (200, 501),
+                  patch: tuple[int, int] = (50, 301),
+                  tail: int = 600) -> list[bytes]:
+    """``mutate_batch`` at ``bg_err``, then ``n_bursts`` events at random
+    positions from 100 to ``tail`` bases before the end: a deletion or an
+    insertion of ``indel`` bases (half-open range), or a patch of ``patch``
+    bases mutated at 40%.  The defaults are
+    ``tools/nanopore_recall.py::_mutate_bursts``, draw for draw; its
+    ``--small`` reads are ``n_bursts=2, indel=(100, 301), patch=(50, 200),
+    tail=400``."""
+    out = []
+    for s in seqs:
+        t = bytearray(mutate_batch(rng, [s], bg_err)[0])
+        for _ in range(n_bursts):
+            kind = rng.integers(0, 3)
+            pos = int(rng.integers(100, max(101, len(t) - tail)))
+            if kind == 0:      # long deletion
+                ln = int(rng.integers(*indel))
+                del t[pos : pos + ln]
+            elif kind == 1:    # long insertion
+                ln = int(rng.integers(*indel))
+                t[pos:pos] = rng.choice(_BASES, size=ln).tobytes()
+            else:              # high-error patch
+                ln = int(rng.integers(*patch))
+                t[pos : pos + ln] = mutate_batch(rng, [bytes(t[pos : pos + ln])], 0.4)[0]
+        out.append(bytes(t))
+    return out
