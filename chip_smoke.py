@@ -44,8 +44,19 @@ uniform and burst: K4's certified exact references at W=6144, held against
 the CPU oracle, and K1 banded at W = 128, 256, 512 and 1024 (uniform: every
 pair finished and optimal at every width; burst: K1 equal to the plain
 engine on the card on pairs the band clips); HiFi x8 exact at W=1024 with
-the loop stopped at its certificate, every pair certified; and
-pack_batch_torch on the card equal to pack_batch.  Every phase prints one line
+the loop stopped at its certificate, every pair certified;
+pack_batch_torch on the card equal to pack_batch; banded K4 (banded windows
+wider than a shared ring, wfa_distance.cu with a band and the global ring)
+against the plain engine on the card, distances, flags, every choice nibble
+a walk reads, lo_trace and the walked rows, at (2,3,1) W=4096 and, with
+CIGARs, 3840, (4,12,6) W=1024, (70,6,2) W=512 and two pinned centres; the
+burst reads at W=2048 (K1) and 4096 (banded K4) in both modes, their recall,
+kernel times against the plain engine and align_pairs(band_width=4096)
+end to end, every CIGAR replayed; the chunk loop of align_pairs (every chunk
+of a tier packed and launched before the first is decoded) on seq_10K_n100
+x4 and HiFi x32 with CIGARs, against a depth of one, with the profiler's
+device-busy share; and the CLI's -B auto -t 4096 on the HiFi FASTA pairs,
+the same scores on the card as on the plain engine.  Every phase prints one line
 with its seconds; any failure ends the run with a nonzero exit code.  The
 line before the last lists every kernel with its launches on the main
 paths, error against its plain version, times and bound; the last line is
@@ -109,6 +120,94 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / INT32_OPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def chunked_workload(workload: str):
+    """(patterns, texts, options) of a chunked-phase workload with CIGARs:
+    ``wide10k-x4`` (seq_10K_n100 x4, exact, K4 + K3 over four chunks) or
+    ``hifi-x32`` (test_hifi x32, W=512, band 25, K2 + K3 over two)."""
+    from wfa_tpu_torch import AlignmentOptions, Penalties
+    from wfa_tpu_torch.utils.io import read_seq_file
+
+    pen = Penalties(2, 3, 1)
+    if workload == "wide10k-x4":
+        seqs, reps = read_seq_file(DATA / "seq_10K_n100.seq"), 4
+        opts = AlignmentOptions(penalties=pen, max_error=3000,
+                                compute_cigar=True, backend="cuda")
+    elif workload == "hifi-x32":
+        seqs, reps = read_seq_file(DATA / "test_hifi.seq"), 32
+        opts = AlignmentOptions(penalties=pen, max_error=3000, band=25,
+                                band_width=512, compute_cigar=True,
+                                backend="cuda")
+    else:
+        raise SystemExit(f"chip_smoke: no chunked workload {workload!r}")
+    return seqs.patterns * reps, seqs.texts * reps, opts
+
+
+def device_busy(fn, name: str) -> tuple[float, float, int, int]:
+    """One call of ``fn`` under the profiler: (wall ms, device-busy ms, this
+    repository's kernels in the trace, its launches in the call).  Busy is
+    the union of the trace's kernel, copy and memset spans
+    (build/chunked_<name>.json).  A trace that lost some of the call's
+    kernels is taken again, three times at most; ``busy_line`` reports one
+    that stays short as not measured."""
+    import torch
+    from wfa_tpu_torch.ops import engine_cuda
+
+    for _ in range(3):
+        before = {k: v for k, v in engine_cuda.LAUNCHES.items()
+                  if k.startswith("wfa_")}
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t1) * 1e3
+        launched = sum(engine_cuda.LAUNCHES[k] - v for k, v in before.items())
+        path = ROOT / "build" / f"chunked_{name}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        traced = sum(1 for e in events
+                     if e.get("cat") == "kernel" and "wfa_" in e["name"])
+        if traced == launched:
+            break
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e3, traced, launched
+
+
+def busy_line(b) -> str:
+    wall, busy, traced, launched = b
+    if traced != launched:
+        return (f"busy not measured (the trace holds {traced} of the call's "
+                f"{launched} kernels)")
+    return f"busy {busy:.3f} of {wall:.3f} ms ({100 * busy / wall:.1f}%)"
+
+
+def profiled_calls(workload: str) -> int:
+    """``chip_smoke.py --busy WORKLOAD``: after a warm-up, one profiled
+    align_pairs call of the workload with every chunk in flight and one at
+    a depth of one (``device_busy``), printed as one JSON object."""
+    sys.path.insert(0, str(ROOT))
+    from wfa_tpu_torch import aligner, align_pairs
+
+    pats, txts, opts = chunked_workload(workload)
+    align_pairs(pats, txts, opts)
+    out = {}
+    for depth in (None, 1):
+        aligner._MAX_PENDING = depth
+        out["all" if depth is None else "1"] = device_busy(
+            lambda: align_pairs(pats, txts, opts),
+            f"{workload}_depth{depth or 'all'}")
+    aligner._MAX_PENDING = None
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def main() -> int:
@@ -210,7 +309,7 @@ def main() -> int:
     spills = [ln for ln in log if "spill" in ln and not re.search(
         r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
     require(not spills, "wfa_distance.cu spills registers: " + "; ".join(spills))
-    require(len(regs) == 10, f"expected 10 wfa_kernel instantiations, got {regs}")
+    require(len(regs) == 12, f"expected 12 wfa_kernel instantiations, got {regs}")
     # K3's two instantiations <banded>: no spill, no stack
     # (a walker member that left registers would show as a stack frame).
     k3_regs, kernel = {}, None
@@ -450,7 +549,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rng = np.random.default_rng(20261016)
     max_err = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
-               "wfa_distance_ring": 0, "wfa_cigar_ring": 0, "ring_bw": 0,
+               "wfa_distance_ring": 0, "wfa_cigar_ring": 0,
+               "wfa_distance_ring_banded": 0, "wfa_cigar_ring_banded": 0, "ring_bw": 0,
                "vpu_ops": 0, "gather_chain": 0, "scalar_sync": 0, "k_wide": 0}
     n_cases = n_lanes = 0
     prep_s = k1_s = plain_s = 0.0
@@ -1764,6 +1864,388 @@ def main() -> int:
     phase("pack-device", t0, "2-bit fields equal inside every read; "
           + "; ".join(pack_lines) + f"; [{smi}]")
 
+    # ---- 23. banded-ring: banded K4 (windows past a shared ring) against the plain versions ----
+    t0 = time.perf_counter()
+    big = 1 << 20
+
+    def banded_widths(cfg):
+        """The lanes a banded window holds at each scheduled score of
+        ``cfg``: it spans its parents' windows plus one diagonal each side,
+        clamped to W, and a re-centre keeps a full window full, so the
+        widths do not depend on the data (csrc/wfa_distance.cu)."""
+        pen, W = cfg.penalties, cfg.wf_width
+        sched = build_schedule(pen, cfg.max_steps, cfg.score_limit)
+        lo = [0] * pen.active_working_set
+        ext = [0] * pen.active_working_set
+        widths = []
+        for s in range(sched.num_steps):
+            sx, soe, se = (int(sched.mx_slot[s]), int(sched.moe_slot[s]),
+                           int(sched.ide_slot[s]))
+
+            def hi(a):
+                return lo[a] + ext[a] if a >= 0 else -big
+
+            def low(a):
+                return lo[a] if a >= 0 else big
+
+            hi_n = max(hi(sx), max(hi(soe), hi(se)) + 1)
+            lo_n = min(low(sx), min(low(soe), low(se)) - 1)
+            t = max(hi_n - lo_n - (W - 1), 0)
+            hi_n -= (t + 1) // 2
+            lo_n += t // 2
+            out = int(sched.out_slot[s])
+            lo[out], ext[out] = lo_n, hi_n - lo_n
+            widths.append(hi_n - lo_n + 1)
+        return sched.score.astype(np.int64), np.array(widths, dtype=np.int64)
+
+    # (name, penalties, W, band, pinned centre or None, max_steps, pairs,
+    # modes): W past a shared ring's width (or a pinned centre narrower than
+    # W), and pairs whose windows pass the centre and re-centre at full width.
+    br_cases = [
+        ("x2o3e1-W4096", Penalties(2, 3, 1), 4096, 25, None, 2600,
+         ring_wide_pairs(seed=11, n=8, length=3000), (False,)),
+        ("x2o3e1-W3840", Penalties(2, 3, 1), 3840, 25, None, 2600,
+         ring_wide_pairs(seed=11, n=8, length=3000), (True,)),
+        ("x4o12e6-W1024", Penalties(4, 12, 6), 1024, 25, None, 4200,
+         ring_wide_pairs(seed=12, n=8, length=2400), (False, True)),
+        ("x70o6e2-W512", Penalties(70, 6, 2), 512, 25, None, 2000,
+         random_pairs(np.random.default_rng(70), 8, 900, 1000, 0.25, 0, 0),
+         (False, True)),
+        ("x1o0e1-b10-C32", Penalties(1, 0, 1), 256, 10, 32, 600,
+         random_pairs(np.random.default_rng(101), 8, 800, 1000, 0.4, 0, 0),
+         (False, True)),
+        ("x2o3e1-b10-C64", Penalties(2, 3, 1), 512, 10, 64, 900,
+         random_pairs(np.random.default_rng(231), 16, 1000, 1500, 0.3, 0, 0),
+         (False, True)),
+    ]
+    br_lines = []
+    reset_launches()
+    for name, pen, w, band, centre, steps, pairs, modes in br_cases:
+        args = tensors(pairs)
+        A = pen.active_working_set
+        for cigar in modes:
+            what = f"banded-ring {name} {'CIGAR' if cigar else 'distance'}"
+            require(centre is not None or w > engine_cuda.max_width(A, smem, cigar),
+                    f"{what}: W={w} fits a shared ring")
+            c = centre or engine_cuda.centre_width(A, w, args[0].shape[1], cigar, smem)
+            t1 = time.perf_counter()
+            if cigar:
+                cfg, tb = cigar_configs(pen, steps, w, band, ring_global=True)
+                tables = engine_cuda.cigar_tables_cuda(cfg, tb.score_cap, *args,
+                                                       _centre=centre)
+                fused = engine_cuda.align_cigar_cuda(cfg, tb, *args, _centre=centre)
+                torch.cuda.synchronize()
+                plain = engine_torch.cigar_tables(cfg, tb.score_cap, *args)
+                err = (tables["distance"] - plain["distance"]).abs().max().item()
+                require(err == 0 and torch.equal(tables["finished"], plain["finished"]),
+                        f"{what}: distances or flags differ from the plain version")
+                require(engine_torch.tables_equal(cfg, tb.score_cap, plain, tables),
+                        f"{what}: choice nibbles or lo_trace differ where a walk reads")
+                require(torch.equal(fused, fused_plain(tb, plain, args)),
+                        f"{what}: K4 + K3 rows differ from the plain walk")
+                dist, fin = plain["distance"], plain["finished"]
+                key = "wfa_cigar_ring_banded"
+            else:
+                cfg = engine_torch.EngineConfig(pen, steps, w, band, ring_global=True)
+                got = engine_cuda.align_batch_cuda(cfg, *args, _centre=centre)
+                torch.cuda.synchronize()
+                want = engine_torch.align_batch_device(cfg, *args)
+                err = (got["distance"] - want["distance"]).abs().max().item()
+                require(err == 0 and torch.equal(got["finished"], want["finished"]),
+                        f"{what}: distances or flags differ from the plain version")
+                dist, fin = want["distance"], want["finished"]
+                key = "wfa_distance_ring_banded"
+            max_err[key] = max(max_err[key], err)
+            scores, widths = banded_widths(cfg)
+            edge_at = int(scores[np.argmax(widths > c)])
+            full_at = int(scores[np.argmax(widths == w)])
+            reach = int(dist.max())
+            require(bool((widths > c).any()) and reach >= full_at + pen.x + band,
+                    f"{what}: no pair re-centres a full window past the centre "
+                    f"(C={c}, full at {full_at}, largest distance {reach})")
+            br_lines.append(
+                f"{name} {'CIGAR' if cigar else 'distance'} C={c} (edges from "
+                f"score {edge_at}, full at {full_at}), distances "
+                f"{int(dist.min())}..{reach}, {int(fin.sum())}/{len(pairs)} "
+                f"finished, {time.perf_counter() - t1:.2f}s")
+    br_launches = dict(engine_cuda.LAUNCHES)
+    require(br_launches["wfa_distance_ring_banded"] == 5
+            and br_launches["wfa_cigar_ring_banded"] == 10
+            and br_launches["wfa_distance_ring"] == br_launches["wfa_cigar_ring"] == 0,
+            f"banded-ring: launches {br_launches}")
+    phase("banded-ring", t0, "K4 banded equal to the plain engine on the card: "
+          "distances, flags and, with CIGARs, every nibble a walk reads, "
+          "lo_trace and the walked rows; " + "; ".join(br_lines)
+          + f"; launches {br_launches}")
+
+    # ---- 24. nanopore-burst-wide: the burst reads at W=2048 (K1) and 4096 (banded K4) ----
+    t0 = time.perf_counter()
+    pen = recall.PENALTIES
+    bpats, btxts = burst["patterns"], burst["texts"]
+    nb = len(bpats)
+    bnw = bargs[0].shape[1]
+    reset_launches()
+    wide = recall.wide_recall(burst, dev)
+    torch.cuda.synchronize()
+    wide_launches = dict(engine_cuda.LAUNCHES)
+    require(wide_launches["wfa_distance"] == 1
+            and wide_launches["wfa_distance_ring_banded"] == 1,
+            f"nanopore-burst-wide: launches {wide_launches}, expected one K1 "
+            "and one banded K4")
+    cfg2k = recall.wide_config(2048, dev)
+    cfg4k = recall.wide_config(4096, dev)
+    require(not cfg2k.ring_global and cfg4k.ring_global,
+            "nanopore-burst-wide: expected K1 at W=2048 and K4 at W=4096")
+    k1_2k_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg2k, *bargs))
+    k4b_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg4k, *bargs))
+    occ2k = engine_cuda.blocks_per_sm(cfg2k, bnw, dev)
+    occ4k = engine_cuda.blocks_per_sm(cfg4k, bnw, dev)
+    c4k = engine_cuda.centre_width(5, 4096, bnw, False, smem)
+    # What the global ring costs a band: K1 and K4 at the widest window a
+    # shared ring holds, on the same reads; their outputs must be equal.
+    wmax = engine_cuda.max_width(5, smem)
+    cfg_k1max = recall.banded_config(wmax)
+    cfg_k4max = dataclasses.replace(cfg_k1max, ring_global=True)
+    k1_max_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg_k1max, *bargs))
+    k4_max_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg_k4max, *bargs))
+    k1_max = engine_cuda.align_batch_cuda(cfg_k1max, *bargs)
+    k4_max = engine_cuda.align_batch_cuda(cfg_k4max, *bargs)
+    require(torch.equal(k1_max["distance"], k4_max["distance"])
+            and torch.equal(k1_max["finished"], k4_max["finished"]),
+            f"nanopore-burst-wide: banded K4 differs from K1 at W={wmax}")
+    k4b_plain_ms, plain4k = cuda_ms(
+        lambda: engine_torch.align_batch_device(cfg4k, *bargs), 1)
+    out4k = wide["outs"][4096]
+    err = (plain4k["distance"] - out4k["distance"]).abs().max().item()
+    require(err == 0 and torch.equal(plain4k["finished"], out4k["finished"]),
+            "nanopore-burst-wide: banded K4 at W=4096 differs from the plain engine")
+    max_err["wfa_distance_ring_banded"] = max(max_err["wfa_distance_ring_banded"], err)
+    del plain4k
+
+    ccfg2k, tb2k = cigar_configs(pen, recall.MAX_STEPS, 2048, recall.BAND)
+    ccfg4k, tb4k = cigar_configs(pen, recall.MAX_STEPS, 4096, recall.BAND,
+                                 ring_global=True)
+    require(4096 > engine_cuda.max_width(5, smem, True) >= 2048,
+            "nanopore-burst-wide: CIGAR widths on the wrong kernels")
+    c4kc = engine_cuda.centre_width(5, 4096, bnw, True, smem)
+    k2_2k_ms = best_ms(lambda: engine_cuda.cigar_tables_cuda(ccfg2k, tb2k.score_cap, *bargs))
+    k4bc_ms = best_ms(lambda: engine_cuda.cigar_tables_cuda(ccfg4k, tb4k.score_cap, *bargs))
+    tables4k = engine_cuda.cigar_tables_cuda(ccfg4k, tb4k.score_cap, *bargs)
+    k4bc_plain_ms, cplain4k = cuda_ms(
+        lambda: engine_torch.cigar_tables(ccfg4k, tb4k.score_cap, *bargs), 1)
+    cerr = (cplain4k["distance"] - tables4k["distance"]).abs().max().item()
+    require(cerr == 0 and torch.equal(cplain4k["finished"], tables4k["finished"])
+            and engine_torch.tables_equal(ccfg4k, tb4k.score_cap, cplain4k, tables4k),
+            "nanopore-burst-wide: banded K4's CIGAR tables differ from the plain ones")
+    require(torch.equal(tables4k["distance"], out4k["distance"]),
+            "nanopore-burst-wide: CIGAR-mode distances differ from distance mode's")
+    max_err["wfa_cigar_ring_banded"] = max(max_err["wfa_cigar_ring_banded"], cerr)
+    # The work this run's data needs (as the hifi-cigar phase counts it):
+    # scheduled scores up to each pair's distance x that score's window;
+    # with CIGARs the choice rows (W words each) and lo_trace entries.
+    bsched = build_schedule(pen, recall.MAX_STEPS, ccfg4k.score_limit)
+    bscores = torch.from_numpy(bsched.score).to(dev, torch.int64)
+    on_walk = bscores[None, :] <= cplain4k["distance"].long()[:, None]
+    bcells = int(((cplain4k["window_ext"][:, bscores].long() + 1) * on_walk).sum())
+    brows = int(sum(len(set((bsched.score[bsched.score <= d] >> 3).tolist()))
+                    for d in cplain4k["distance"].tolist()))
+    bscored = int(on_walk.sum())
+    del cplain4k, tables4k, on_walk
+    bseq = sum(t.numel() * t.element_size() for t in bargs) + 5 * nb
+    k4b_bound = bound_ms(bseq, bcells * OPS_PER_CELL)
+    k4bc_bound = bound_ms(bseq + brows * 4096 * 4 + bscored * 4,
+                          bcells * OPS_PER_CELL_CIGAR)
+    # K3 walks both widths' tables; every finished pair's CIGAR replays.
+    walks = {}
+    for w, ccfg, tb in ((2048, ccfg2k, tb2k), (4096, ccfg4k, tb4k)):
+        fused = engine_cuda.align_cigar_cuda(ccfg, tb, *bargs).cpu().numpy()
+        fin = fused[:, 1] != 0
+        cigs, _ = native.cigar_from_ops_batch(
+            np.ascontiguousarray(fused[:, 4:]), fused[:, 2], fin, bpats, btxts)
+        require(fused[:, 0].tolist() == wide["outs"][w]["distance"].tolist()
+                and all(c is not None and check_cigar(c, p, t)
+                        for c, p, t, f in zip(cigs, bpats, btxts, fin) if f),
+                f"nanopore-burst-wide: W={w} CIGARs do not replay or distances differ")
+        walks[w] = int(fin.sum())
+
+    wopts = AlignmentOptions(penalties=pen, max_error=recall.MAX_STEPS,
+                             band=recall.BAND, band_width=4096, backend="cuda")
+    align_pairs(bpats[:4], btxts[:4], wopts)      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    wres = align_pairs(bpats, btxts, wopts)
+    torch.cuda.synchronize()
+    w_e2e_s = time.perf_counter() - t1
+    k4b_launches = engine_cuda.LAUNCHES["wfa_distance_ring_banded"]
+    wfin = out4k["finished"].cpu().numpy()
+    wdist = out4k["distance"].cpu().numpy()
+    require(k4b_launches >= 1 and engine_cuda.LAUNCHES["wfa_distance"] == 0,
+            f"nanopore-burst-wide: align_pairs launches {engine_cuda.LAUNCHES}")
+    require([r.finished_on_accelerator for r in wres] == wfin.tolist()
+            and all(r.error == d for r, d, f in zip(wres, wdist, wfin) if f),
+            "nanopore-burst-wide: align_pairs differs from banded K4's launch")
+    wcopts = dataclasses.replace(wopts, compute_cigar=True)
+    align_pairs(bpats[:4], btxts[:4], wcopts)     # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t1 = time.perf_counter()
+    wcres = align_pairs(bpats, btxts, wcopts)
+    torch.cuda.synchronize()
+    wc_e2e_s = time.perf_counter() - t1
+    k4bc_launches = dict(engine_cuda.LAUNCHES)
+    require(k4bc_launches["wfa_cigar_ring_banded"] >= 2
+            and k4bc_launches["wfa_traceback"] == k4bc_launches["wfa_cigar_ring_banded"],
+            f"nanopore-burst-wide: the CIGAR call's launches {k4bc_launches}, "
+            "expected banded K4 + K3 over two chunks or more")
+    require([r.error for r in wcres] == [r.error for r in wres]
+            and all(check_cigar(r.cigar, p, t) for r, p, t in zip(wcres, bpats, btxts)),
+            "nanopore-burst-wide: align_pairs CIGARs do not replay or distances differ")
+    phase("nanopore-burst-wide", t0,
+          f"{nb} pairs, {bnw} words a row: " + "; ".join(
+              recall.row_line(row, nb) for row in wide["rows"])
+          + f"; distance: K1 W=2048 {k1_2k_ms:.3f} ms ({occ2k[0]} blocks of "
+          f"{occ2k[1]} threads an SM, rows "
+          f"{'shared' if engine_cuda.rows_fit(5, 2048, bnw, False, smem) else 'global'}), "
+          f"banded K4 W=4096 {k4b_ms:.3f} ms ({occ4k[0]} blocks of {occ4k[1]} "
+          f"threads an SM, C={c4k}, edges {engine_cuda.ring_bytes(5, 4096, c4k) * nb / 1e6:.3f} MB), "
+          f"plain {k4b_plain_ms:.3f} ms, bound {k4b_bound[0]:.4f} ms ({k4b_bound[1]}, "
+          f"{bcells} cells); at W={wmax}, the widest shared ring: K1 "
+          f"{k1_max_ms:.3f} ms, banded K4 {k4_max_ms:.3f} ms (C="
+          f"{engine_cuda.centre_width(5, wmax, bnw, False, smem)}), outputs equal; "
+          f"CIGAR tables: K2 W=2048 {k2_2k_ms:.3f} ms, banded K4 "
+          f"W=4096 {k4bc_ms:.3f} ms (C={c4kc}, edges "
+          f"{engine_cuda.ring_bytes(5, 4096, c4kc) * nb / 1e6:.3f} MB), plain "
+          f"{k4bc_plain_ms:.3f} ms, bound {k4bc_bound[0]:.4f} ms ({k4bc_bound[1]}); "
+          f"K3 walked {walks[2048]} and {walks[4096]} pairs, every CIGAR replays; "
+          f"align_pairs(band=25, band_width=4096) distance {w_e2e_s * 1e3:.3f} ms "
+          f"({sum(r.finished_on_accelerator for r in wres)}/{nb} on the card, "
+          f"{k4b_launches} banded K4 launch(es)), CIGAR {wc_e2e_s * 1e3:.3f} ms "
+          f"({k4bc_launches['wfa_cigar_ring_banded']} banded K4 + K3 launches), "
+          f"every CIGAR replays; [{smi}]")
+
+    # ---- 25. chunked: a tier over several chunks, every chunk in flight ----
+    t0 = time.perf_counter()
+    pen = Penalties(2, 3, 1)
+    tier_stats = []
+    run_tier = aligner._run_tier_cuda
+
+    def counted_tier(*a, **k):
+        stats = run_tier(*a, **k)
+        tier_stats.append(stats)
+        return stats
+
+    def depth_runs(name, workload, pats, txts, opts, check):
+        """align_pairs warm three times with every chunk in flight and three
+        times at a depth of one, in turns, then one profiled call each
+        (``profiled_calls(workload)``, in a child process)."""
+        align_pairs(pats[:8], txts[:8], opts)    # warm-up
+        walls = {None: [], 1: []}
+        stats = {}
+        for depth in (None, 1) * 3:
+            aligner._MAX_PENDING = depth
+            tier_stats.clear()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            res = align_pairs(pats, txts, opts)
+            torch.cuda.synchronize()
+            walls[depth].append((time.perf_counter() - t1) * 1e3)
+            check(res)
+            stats[depth] = list(tier_stats)
+        aligner._MAX_PENDING = None
+        # The profiled calls run in a process of their own: late in this
+        # long run the trace lost some of a call's kernels, a fresh
+        # process's trace holds them all.
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--busy", workload],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        require(proc.returncode == 0,
+                f"chunked {name}: the profiled run failed:\n{proc.stderr[-2000:]}")
+        busy = json.loads(proc.stdout.strip().splitlines()[-1])
+        st = stats[None][0]
+        require(len(stats[None]) == 1 and st["chunks"] >= 2
+                and st["peak"] == st["depth"] == st["chunks"]
+                and stats[1][0]["peak"] == 1,
+                f"chunked {name}: tier stats {stats}")
+        return (f"{name}: {st['chunks']} chunks, all in flight: "
+                + ", ".join(f"{v:.3f}" for v in walls[None]) + " ms; depth 1: "
+                + ", ".join(f"{v:.3f}" for v in walls[1]) + " ms; device "
+                + busy_line(busy["all"]) + ", depth 1 " + busy_line(busy["1"]))
+
+    x4p, x4t, w4opts = chunked_workload("wide10k-x4")
+    gold4 = gold10 * 4
+    checked = []
+
+    def check_w10(res):
+        require([r.error for r in res] == gold4
+                and all(r.finished_on_accelerator for r in res),
+                "chunked wide10k x4: scores differ from the goldens x4")
+        if not checked:
+            require(all(check_cigar(r.cigar, p, t) and affine_score(r.cigar, pen) == g
+                        for r, p, t, g in zip(res, x4p, x4t, gold4)),
+                    "chunked wide10k x4: a CIGAR does not replay or rescore")
+            checked.append([r.cigar for r in res])
+        require([r.cigar for r in res] == checked[0],
+                "chunked wide10k x4: CIGARs differ between runs")
+
+    h32p, h32t, h32opts = chunked_workload("hifi-x32")
+
+    def check_h32(res):
+        require([r.error for r in res] == cref["distance"] * 32
+                and [r.cigar for r in res] == cref["cigar"] * 32,
+                "chunked HiFi x32: results differ from the stored reference")
+
+    aligner._run_tier_cuda = counted_tier
+    try:
+        reset_launches()
+        align_pairs(x4p, x4t, w4opts)
+        torch.cuda.synchronize()
+        chunk_launches = dict(engine_cuda.LAUNCHES)
+        chunked_lines = [
+            depth_runs("wide10k x4", "wide10k-x4", x4p, x4t, w4opts, check_w10),
+            depth_runs("HiFi x32", "hifi-x32", h32p, h32t, h32opts, check_h32)]
+    finally:
+        aligner._run_tier_cuda = run_tier
+        aligner._MAX_PENDING = None
+    require(chunk_launches["wfa_cigar_ring"] == 4
+            and chunk_launches["wfa_traceback"] == 4,
+            f"chunked: wide10k x4 launches {chunk_launches}, expected K4 + K3 "
+            "over four chunks")
+    phase("chunked", t0, "scores equal the goldens x4 and the HiFi CIGAR "
+          "reference x32, every CIGAR replays and rescores; "
+          + "; ".join(chunked_lines) + f"; launches {chunk_launches}; [{smi}]")
+
+    # ---- 26. cli-band4096: the CLI's -B auto -t 4096 on the HiFi FASTA pairs ----
+    t0 = time.perf_counter()
+    from wfa_tpu_torch import cli
+    cli_args = ["-Q", str(DATA / "test_hifi.query.fasta"), "-T",
+                str(DATA / "test_hifi.target.fasta"), "-e", "3000", "-B", "auto",
+                "-t", "4096"]
+    cli_out = {b: ROOT / "build" / f"cli_band4096_{b}.out" for b in ("cuda", "torch")}
+    reset_launches()
+    t1 = time.perf_counter()
+    require(cli.main(cli_args + ["--backend", "cuda", "-o", str(cli_out["cuda"])]) == 0,
+            "cli-band4096: the cuda run failed")
+    cli_cuda_s = time.perf_counter() - t1
+    cli_launches = dict(engine_cuda.LAUNCHES)
+    require(cli_launches["wfa_distance_ring_banded"] >= 1,
+            f"cli-band4096: the cuda run launched no banded K4: {cli_launches}")
+    t1 = time.perf_counter()
+    require(cli.main(cli_args + ["--backend", "torch", "-n", "8", "-o",
+                                 str(cli_out["torch"])]) == 0,
+            "cli-band4096: the torch run failed")
+    cli_torch_s = time.perf_counter() - t1
+    scores = {b: [int(ln.split()[0]) for ln in p.read_text().splitlines() if ln.strip()]
+              for b, p in cli_out.items()}
+    require(len(scores["cuda"]) == 50 and scores["cuda"][:8] == scores["torch"],
+            f"cli-band4096: cuda scores {scores['cuda'][:8]} against the plain "
+            f"engine's {scores['torch']}")
+    phase("cli-band4096", t0,
+          f"-e 3000 -B auto -t 4096 on test_hifi: --backend cuda 50 pairs in "
+          f"{cli_cuda_s:.2f}s (launches {cli_launches}); --backend torch, the "
+          f"plain engine on the CPU, the first 8 in {cli_torch_s:.2f}s; the 8 "
+          f"scores equal: {scores['torch']}")
+
     print(json.dumps({"kernels": [
         {
             "name": "wfa_distance", "route": "cuda",
@@ -1810,6 +2292,24 @@ def main() -> int:
             "bound_ms": k4c_bound[0], "bound_by": k4c_bound[1], "library_ms": None,
         },
         {
+            "name": "wfa_distance_ring_banded", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/aligner.py:637-646 (wfa_tpu/ops/engine_xla.py)",
+            "launches": k4b_launches,
+            "max_abs_err": max_err["wfa_distance_ring_banded"],
+            "ms": k4b_ms, "plain_ms": k4b_plain_ms,
+            "bound_ms": k4b_bound[0], "bound_by": k4b_bound[1], "library_ms": None,
+        },
+        {
+            "name": "wfa_cigar_ring_banded", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/aligner.py:637-646 (wfa_tpu/ops/engine_xla.py)",
+            "launches": k4bc_launches["wfa_cigar_ring_banded"],
+            "max_abs_err": max_err["wfa_cigar_ring_banded"],
+            "ms": k4bc_ms, "plain_ms": k4bc_plain_ms,
+            "bound_ms": k4bc_bound[0], "bound_by": k4bc_bound[1], "library_ms": None,
+        },
+        {
             "name": "ring_bw", "route": "cuda",
             "source": "wfa_tpu_torch/ops/csrc/ring_bw.cu",
             "replaces": "tools/dev_dma_bw.py:35",
@@ -1845,4 +2345,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--busy"] and len(sys.argv) == 3:
+        sys.exit(profiled_calls(sys.argv[2]))
     sys.exit(main())

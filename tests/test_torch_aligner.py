@@ -179,8 +179,13 @@ def test_geometry_banded_never_truncates():
     assert (cfg.wf_width, cfg.band, cfg.score_limit, full) == (512, 25, None, True)
     cfg, _, _ = _geom(128, 128, pen=Penalties(70, 6, 2), banded=True)
     assert engine_cuda.smem_bytes(71, cfg.wf_width) <= H100_SMEM
-    with pytest.raises(ValueError):
-        _geom(1024, 512, pen=Penalties(70, 6, 2), banded=True)
+    assert not cfg.ring_global
+    # A banded window past a shared ring takes K4 at its own W, neither
+    # truncated nor certified (wfa_tpu runs its XLA engine there).
+    cfg, full, _ = _geom(1024, 512, pen=Penalties(70, 6, 2), banded=True)
+    assert (cfg.wf_width, cfg.ring_global, cfg.band, cfg.score_limit, full) == (
+        512, True, 25, None, True)
+    assert engine_cuda.centre_width(71, 512, 65, False, H100_SMEM) == 256
 
 
 def test_geometry_invariants_fuzz():
@@ -192,18 +197,23 @@ def test_geometry_invariants_fuzz():
         banded = bool(rng.random() < 0.4)
         smem = int(rng.choice([48 * 1024, 100 * 1024, H100_SMEM]))
         A = pen.active_working_set
-        if banded and engine_cuda.smem_bytes(A, -(-wf // 128) * 128) > smem:
-            with pytest.raises(ValueError):
-                _geom(tier, wf, pen, banded, smem)
-            continue
-        cfg, full, cert = _geom(tier, wf, pen, banded, smem)
         w = -(-wf // 128) * 128
+        if banded and engine_cuda.smem_bytes(A, w) > smem:
+            # K4 at its own W, unless its packed rows and one centre
+            # granule do not fit.
+            try:
+                engine_cuda.centre_width(A, w, tier // 16 + 1, False, smem)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    _geom(tier, wf, pen, banded, smem)
+                continue
+        cfg, full, cert = _geom(tier, wf, pen, banded, smem)
         assert cfg.wf_width % 128 == 0
         assert engine_cuda.smem_bytes(A, cfg.wf_width,
                                       ring_global=cfg.ring_global) <= smem
-        assert cfg.ring_global == (not banded
-                                   and w > engine_cuda.max_width(A, smem))
-        assert cfg.wf_width == (min(w, 16384) if cfg.ring_global else w)
+        assert cfg.ring_global == (w > engine_cuda.max_width(A, smem))
+        assert cfg.wf_width == (min(w, 16384) if cfg.ring_global and not banded
+                                else w)
         assert cert == pen.o + pen.e * (cfg.wf_width // 2 + 1)
         assert full == (cfg.wf_width >= wf)
         if not full:

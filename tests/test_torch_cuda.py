@@ -15,7 +15,8 @@ row's ends, forged tables, lo_pad below the rows, a stream past opw) at
 file's numpy model's.  K4 (wfa_distance.cu with the ring's
 edges in global memory, ``ring_global``): the same outputs as the plain
 versions and as K1/K2 where both run, also with a centre pinned narrower
-than the cone, so that cells cross from shared to global memory.  The ring-row probe (csrc/ring_bw.cu): the ring and
+than the cone, so that cells cross from shared to global memory; banded K4
+the same, its re-centres reading and writing the edges.  The ring-row probe (csrc/ring_bw.cu): the ring and
 the sums equal.  The calibration kernels (csrc/sol_calibrate.cu) and the
 wide-gather probe (csrc/gather_probe.cu): outputs equal.  The sharded
 functions of parallel/mesh.py with two blocks on the card (two streams) and
@@ -342,10 +343,11 @@ def test_k4_equals_k1_k2(device):
 
 
 def test_k4_refuses_a_band(device):
+    """K4 no longer refuses a band: the config takes it, and the C entry
+    point launches banded K4 (W=128, a centre of 64 lanes) with the plain
+    engine's outputs."""
     pen = Penalties(2, 3, 1)
-    with pytest.raises(ValueError, match="exact only"):
-        engine_torch.EngineConfig(pen, 50, 128, 25, ring_global=True)
-    # The C entry point refuses a ring with a band too.
+    cfg = engine_torch.EngineConfig(pen, 50, 128, 25, ring_global=True)
     args = _tensors(EDGE_PAIRS, device)
     B, nw = args[0].shape
     sched, num_steps, unfinished, _ = engine_cuda._schedule_tensor(
@@ -361,16 +363,55 @@ def test_k4_refuses_a_band(device):
         edges.data_ptr(), 64, 1, 0, B, device.index,
         torch.cuda.current_stream(device).cuda_stream,
     )
-    assert rc != 0
+    assert rc == 0
+    want = engine_torch.align_batch_device(cfg, *args)
+    assert torch.equal(dist, want["distance"])
+    assert torch.equal(fin, want["finished"])
+
+
+@pytest.mark.parametrize(
+    "pen,width,band,centre",
+    [(Penalties(2, 3, 1), 512, 10, None), (Penalties(2, 3, 1), 512, 10, 64),
+     (Penalties(1, 0, 1), 256, 10, 32), (Penalties(4, 12, 6), 1024, 25, None),
+     (Penalties(70, 6, 2), 512, 25, None), (Penalties(4, 1, 2), 256, 5, 96)],
+)
+def test_k4_banded_equals_plain_version(device, pen, width, band, centre):
+    """Banded K4 in distance and CIGAR mode; a pinned centre narrower than
+    the window puts the re-centres' reads and writes in the global edges."""
+    rng = np.random.default_rng(width + band + pen.x + (centre or 0))
+    pairs = EDGE_PAIRS + random_pairs(rng, 40, 10, 700)
+    args = _tensors(pairs, device, invalid_every=9)
+    cfg = engine_torch.EngineConfig(pen, 160, width, band, ring_global=True)
+    before = dict(engine_cuda.LAUNCHES)
+    got = engine_cuda.align_batch_cuda(cfg, *args, _centre=centre)
+    ccfg, tb = _cigar_configs(pen, 160, width, band, ring_global=True)
+    tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args,
+                                           _centre=centre)
+    fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args, _centre=centre)
+    torch.cuda.synchronize()
+    after = engine_cuda.LAUNCHES
+    assert after["wfa_distance_ring_banded"] == before["wfa_distance_ring_banded"] + 1
+    assert after["wfa_cigar_ring_banded"] == before["wfa_cigar_ring_banded"] + 2
+    assert after["wfa_distance_ring"] == before["wfa_distance_ring"]
+    assert after["wfa_cigar_ring"] == before["wfa_cigar_ring"]
+    want = engine_torch.align_batch_device(cfg, *args)
+    assert torch.equal(got["finished"], want["finished"])
+    assert torch.equal(got["distance"], want["distance"])
+    plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
+    assert torch.equal(tables["distance"], plain["distance"])
+    assert torch.equal(tables["finished"], plain["finished"])
+    assert engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables)
+    assert torch.equal(fused, traceback_torch.align_cigar_fused(ccfg, tb, *args))
 
 
 # (band, W, ring_global): K1/K2 banded and exact, and K4 at a window wider
 # than a shared ring (edges in global memory).
-_SHARDED_CASES = [(25, 512, False), (-1, 256, False), (-1, 4096, True)]
+_SHARDED_CASES = [(25, 512, False), (-1, 256, False), (-1, 4096, True),
+                  (25, 4096, True)]
 
 
 @pytest.mark.parametrize("band,width,ring", _SHARDED_CASES,
-                         ids=["banded", "exact", "k4"])
+                         ids=["banded", "exact", "k4", "k4-banded"])
 def test_sharded_functions_equal_one_launch(device, band, width, ring):
     """parallel/mesh.py with two blocks on one card (two streams), 33 and
     32 pairs: each sharded function's outputs equal one launch's, bit for
@@ -380,8 +421,9 @@ def test_sharded_functions_equal_one_launch(device, band, width, ring):
     pairs = EDGE_PAIRS + random_pairs(rng, 51, 10, 600)
     args = _tensors(pairs, device, invalid_every=9)
     two = [device, device]
-    k1 = "wfa_distance_ring" if ring else "wfa_distance"
-    k2 = "wfa_cigar_ring" if ring else "wfa_cigar"
+    ring_key = ("_ring_banded" if band > 0 else "_ring") if ring else ""
+    k1 = "wfa_distance" + ring_key
+    k2 = "wfa_cigar" + ring_key
 
     cfg = engine_torch.EngineConfig(pen, 120, width, band, ring_global=ring)
     one = engine_cuda.align_batch_cuda(cfg, *args)

@@ -121,12 +121,13 @@ def test_config_maps_ring_and_refuses_a_band():
     assert engine_torch.config_from_tpu(ring).ring_global
     assert not engine_torch.config_from_tpu(plain).ring_global
     assert not engine_torch.config_from_tpu(xla).ring_global
+    # The global ring takes a band too: banded K4, for banded windows past a
+    # shared ring (wfa_tpu runs its XLA engine there).
     tpen = TorchPenalties(2, 3, 1)
-    with pytest.raises(ValueError, match="exact only"):
-        engine_torch.EngineConfig(tpen, 50, 256, band=25, ring_global=True)
+    cfg = engine_torch.EngineConfig(tpen, 50, 256, band=25, ring_global=True)
+    assert cfg.banded and cfg.ring_global
     cfg = engine_torch.EngineConfig(tpen, 50, 256, ring_global=True)
-    with pytest.raises(ValueError, match="exact only"):
-        dataclasses.replace(cfg, band=10)
+    assert dataclasses.replace(cfg, band=10).ring_global
 
 
 _PENS = [(2, 3, 1), (1, 2, 1), (3, 1, 4), (5, 3, 2), (4, 1, 2), (1, 0, 1),

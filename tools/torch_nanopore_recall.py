@@ -17,8 +17,10 @@ W=6144, where a distance below o + e*(W/2+1) = 3076 (penalties 2,3,1) is
 certified optimal; every pair must be certified, and a sample is held
 against the native CPU oracle.  Then K1 runs banded (band 25) at W = 128,
 256, 512 and 1024, and each width prints how many pairs finished, how many
-scored the optimum and the largest inflation.  Without a CUDA device these
-modes exit nonzero; they never run on the CPU.
+scored the optimum and the largest inflation; then the same lines at the
+wide widths, W = 2048 (K1) and 4096 (banded K4: wider than a block's
+shared memory holds as a ring).  Without a CUDA device these modes exit
+nonzero; they never run on the CPU.
 
 ``--small`` (12 x 3 kbp, two 100-300 bp events a read) and ``--small20``
 (8 x 20 kbp burst reads) run the plain PyTorch engine on the CPU at the odd
@@ -28,6 +30,7 @@ tool runs its XLA engine on the CPU; K1 takes only multiples of 32.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -47,6 +50,8 @@ BAND = 25
 MAX_STEPS = 5000
 EXACT_WIDTH = 6144
 CARD_WIDTHS = (128, 256, 512, 1024)
+# Banded widths past 1024: K1 at 2048, banded K4 at 4096 on an H100.
+WIDE_WIDTHS = (2048, 4096)
 # A distance below this leaves the centred +-W/2 window of the exact pass
 # never, so it is optimal (3076 at W=6144).
 CERT_BOUND = PENALTIES.o + PENALTIES.e * (EXACT_WIDTH // 2 + 1)
@@ -88,6 +93,24 @@ def exact_config() -> engine_torch.EngineConfig:
 
 def banded_config(width: int, max_steps: int = MAX_STEPS) -> engine_torch.EngineConfig:
     return engine_torch.EngineConfig(PENALTIES, max_steps, width, BAND)
+
+
+def wide_config(width: int, device, cigar: bool = False) -> engine_torch.EngineConfig:
+    """``banded_config(width)`` on ``device``'s kernels: K1 (K2) where a
+    block's shared memory holds the ring, else banded K4 (``ring_global``),
+    as ``align_pairs`` plans it."""
+    smem = engine_cuda.smem_optin(device)
+    ring = width > engine_cuda.max_width(PENALTIES.active_working_set, smem, cigar)
+    return dataclasses.replace(banded_config(width), ring_global=ring)
+
+
+def wide_recall(res: dict, device) -> dict:
+    """K1/K4 banded at ``WIDE_WIDTHS`` on ``card_recall``'s packed reads:
+    each width's output (``outs``) and ``recall_row`` (``rows``)."""
+    outs = {w: engine_cuda.align_batch_cuda(wide_config(w, device), *res["args"])
+            for w in WIDE_WIDTHS}
+    return {"outs": outs,
+            "rows": [recall_row(w, o, res["exact"]) for w, o in outs.items()]}
 
 
 def recall_row(width: int, out: dict, exact: np.ndarray) -> tuple[int, int, int, int]:
@@ -199,10 +222,13 @@ def main(argv: list[str] | None = None) -> int:
         print("torch_nanopore_recall: the default and --burst modes need a CUDA "
               "device (--small and --small20 run on the CPU)", file=sys.stderr)
         return 2
-    res = card_recall(args.burst, torch.device("cuda", 0))
+    device = torch.device("cuda", 0)
+    res = card_recall(args.burst, device)
     exact = res["exact"]
     print(f"exact distances: {exact.min()}..{exact.max()} (all certified)")
     for row in res["rows"]:
+        print(row_line(row, len(exact)))
+    for row in wide_recall(res, device)["rows"]:
         print(row_line(row, len(exact)))
     return 0
 

@@ -9,7 +9,8 @@ With ``compute_cigar`` each pair also gets its CIGAR.
 Backends: ``cuda`` runs the hand-written kernels (``ops/engine_cuda.py``: K1
 for distances; K2 + K3 for CIGARs, with only the walked op streams copied
 back and decoded by ``native.cigar_from_ops_batch``; K4 in place of K1 or K2
-for exact windows wider than a block's shared memory allows) and never
+for windows, exact or banded, wider than a block's shared memory allows),
+enqueues every chunk of a tier before it decodes the first, and never
 carries on on the CPU; ``torch`` runs the plain PyTorch engine on CPU
 tensors at the XLA route's window widths, decoding its per-step choice
 table with ``native.traceback_batch``, so its results equal
@@ -56,6 +57,10 @@ _CUDA_CIGAR_CALL_BATCH = 4096
 # Widest exact window on K4's global ring (wfa_tpu's PALLAS_MAX_WIDTH_RING);
 # past it the window is truncated and certified.
 _RING_MAX_W = 16384
+# Most chunks of a tier in flight at once (_pending_depth); None: no cap
+# beyond the memory budget.  Timings set it to 1 to compare with a loop that
+# waits for each chunk before it packs the next.
+_MAX_PENDING: int | None = None
 
 
 def _tier_of(length: int) -> int:
@@ -145,15 +150,17 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
     """Launch geometry of one tier on the CUDA kernels; host arithmetic only.
 
     The window is ``plan.wf_width`` rounded up to 128 diagonals, as on the
-    Pallas route, so banded scores equal ``wfa_tpu``'s at the same W.  An
-    exact window wider than a shared-memory ring allows runs on K4, its
-    ring's centre in shared memory and its edges in global memory
-    (``ring_global``), up to ``_RING_MAX_W`` diagonals
+    Pallas route, so banded scores equal ``wfa_tpu``'s at the same W.  A
+    window wider than a shared-memory ring allows runs on K4, with part of
+    its ring in shared memory and the edges in global memory
+    (``ring_global``).  Exact, it does so up to ``_RING_MAX_W`` diagonals
     (``wfa_tpu/aligner.py:183-201``); past that it is truncated and
     certified: leaving a centred +-W/2 window costs at least
     ``o + e*(W/2+1)``, so a distance below that bound is optimal; the loop
-    stops at the bound.  A banded window never takes the global ring and is
-    never truncated.
+    stops at the bound.  Banded, it takes K4 at its own W, never truncated
+    or certified, where ``wfa_tpu`` runs its XLA engine
+    (``wfa_tpu/aligner.py:637-646``).  The one window refused is one where
+    K4's packed rows and smallest centre do not fit (``centre_width``).
 
     In CIGAR mode (``wfa_tpu/aligner.py:204-224``) the choice table holds
     scores below ``score_cap = unfinished_score + 1``, capped at
@@ -168,9 +175,9 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
     w = _round_up(plan.wf_width, _LANE)
     score_limit = None
     full_window = True
-    ring_global = False
+    # w is a multiple of 128, so it fits a shared ring iff w <= max_width.
+    ring_global = w > engine_cuda.max_width(A, smem_bytes, cigar)
     if not opts.banded:
-        ring_global = w > engine_cuda.max_width(A, smem_bytes, cigar)
         if ring_global:
             w = min(w, _RING_MAX_W)
         full_window = w >= plan.wf_width
@@ -178,11 +185,6 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
     if ring_global:
         # Raises when K4's packed rows and smallest centre do not fit.
         engine_cuda.centre_width(A, w, plan.nwords, cigar, smem_bytes)
-    elif (need := engine_cuda.smem_bytes(A, w, cigar)) > smem_bytes:
-        raise ValueError(
-            f"window W={w} with working set {A} (band={band}, cigar={cigar}) "
-            f"needs {need} bytes of shared memory; a block has {smem_bytes}"
-        )
     cert_bound = pen.o + pen.e * (w // 2 + 1)
     score_cap = 0
     if cigar:
@@ -220,28 +222,87 @@ def _distance_call_batch(opts: AlignmentOptions, ring: int) -> int:
     return max(1, min(_CUDA_CALL_BATCH, opts.memory_budget_bytes // ring))
 
 
+def _pending_depth(n_chunks: int, chunk_bytes: int, budget: int) -> int:
+    """How many chunks of a tier may be in flight (packed, launched and
+    copied back, not yet decoded) at once: every chunk, as
+    ``wfa_tpu/aligner.py:398`` allows on its fused paths, unless the
+    page-locked host buffers they hold (``chunk_bytes`` a chunk) would pass
+    the memory budget, or ``_MAX_PENDING`` caps it.  The device memory of a
+    pending chunk does not bound it: K2's choice table and K4's edge ring
+    are temporaries of the wrapper, freed into the caching allocator in
+    stream order, so the next chunk's launch reuses them, and a chunk's
+    inputs and fused output are dropped once its copy back is enqueued."""
+    depth = min(n_chunks, max(1, budget // max(chunk_bytes, 1)))
+    if _MAX_PENDING:
+        depth = min(depth, _MAX_PENDING)
+    return depth
+
+
+class _HostSlot:
+    """One pending chunk's host buffers, allocated once per tier and reused
+    by every ``depth``-th chunk: the packed inputs and the copy back's
+    [rows, cols] int32 (distance and finished, or the fused CIGAR rows).
+    Page-locked (``pin``) so that both copies are asynchronous."""
+
+    def __init__(self, rows: int, nwords: int, cols: int, pin: bool):
+        def empty(*shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, pin_memory=pin)
+
+        self.pat = empty(rows, nwords)
+        self.txt = empty(rows, nwords)
+        self.plen = empty(rows)
+        self.tlen = empty(rows)
+        self.valid = empty(rows, dtype=torch.bool)
+        self.out = empty(rows, cols)
+
+    def fill(self, pats, txts, nwords: int) -> tuple[torch.Tensor, ...]:
+        """Pack one chunk into the slot: (pat, txt, plen, tlen, valid), the
+        host tensors of ``batch_to_tensors`` with the same values."""
+        n = len(pats)
+        pat_w, p_len, p_ok = pack_batch(pats, nwords)
+        txt_w, t_len, t_ok = pack_batch(txts, nwords)
+        self.pat[:n].numpy()[:] = pat_w.view(np.int32)
+        self.txt[:n].numpy()[:] = txt_w.view(np.int32)
+        self.plen[:n].numpy()[:] = p_len
+        self.tlen[:n].numpy()[:] = t_len
+        self.valid[:n].numpy()[:] = p_ok & t_ok
+        return (self.pat[:n], self.txt[:n], self.plen[:n], self.tlen[:n],
+                self.valid[:n])
+
+
 def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
-                   results, need_cpu) -> None:
+                   results, need_cpu, device=None, smem=None) -> dict:
     """One tier on K1 (distance) or K2 + K3 (CIGAR), with K4 in place of K1
     or K2 when the window takes the global ring.  With ``data_parallel`` and
     several devices in ``data_mesh()``, each chunk of up to ``ndev x call_b``
     pairs is packed once and split over the devices, each launch within the
-    one-device caps."""
-    mesh = parallel_mesh.data_mesh() if opts.data_parallel else []
-    if len(mesh) > 1:
-        ndev = len(mesh)
-        device = torch.device("cpu")   # packed on the host, split by the mesh
-        smem = min(engine_cuda.smem_optin(d) for d in mesh)
-    else:
-        ndev = 1
-        device = torch.device("cuda", torch.cuda.current_device())
-        smem = engine_cuda.smem_optin(device)
+    one-device caps.  ``device`` runs the loop on one explicit device
+    instead, and ``smem`` sets the bytes of shared memory a block may use;
+    on the CPU the wrappers run their plain versions (tests).
+
+    ``wfa_tpu/aligner.py:387-524``'s two phases: each chunk is packed into
+    page-locked host buffers, copied to the card, launched, and its results
+    copied back into host buffers, one copy each way, with no wait; then the
+    chunks are waited for in order and decoded, so the host's packing and
+    decoding overlap the card's work on other chunks.  At most
+    ``_pending_depth`` chunks are in flight: before a chunk past it is
+    packed, the oldest is decoded.  Returns the tier's chunks, that depth
+    and the most chunks that were in flight at once."""
+    mesh = []
+    if device is None:
+        mesh = parallel_mesh.data_mesh() if opts.data_parallel else []
+        if len(mesh) < 2:
+            mesh = []
+            device = torch.device("cuda", torch.cuda.current_device())
+    if smem is None:
+        smem = min(engine_cuda.smem_optin(d) for d in mesh or [device])
+    ndev = max(len(mesh), 1)
     cfg, full_window, cert_bound, score_cap = _tier_geometry_cuda(
         plan, opts, max_error, band, smem
     )
     cigar = opts.compute_cigar
-    # K4's edges: what the ring's centre in shared memory leaves over.  K4
-    # stages the packed rows; K1/K2 where they fit beside the ring.
+    # K4's edges: what the part of the ring in shared memory leaves over.
+    # K4 stages the packed rows; K1/K2 where they fit beside the ring.
     A = opts.penalties.active_working_set
     ring = 0
     rows = "shared"
@@ -251,6 +312,7 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
         ring = engine_cuda.ring_bytes(A, cfg.wf_width, centre)
     elif not engine_cuda.rows_fit(A, cfg.wf_width, plan.nwords, cigar, smem):
         rows = "global"
+    cols = 2
     if cigar:
         tb_cfg = TracebackConfig(
             penalties=opts.penalties, wf_width=cfg.wf_width,
@@ -258,32 +320,64 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
             lo_pad=engine_torch.lo_pad(score_cap) if cfg.banded else 0,
         )
         call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width, ring)
+        cols = 4 + tb_cfg.opw
     else:
         call_b = _distance_call_batch(opts, ring)
+    step = ndev * call_b
+    n_chunks = -(-len(idxs) // step)
+    slot_rows = min(step, len(idxs))
+    depth = _pending_depth(
+        n_chunks, slot_rows * (4 * (2 * plan.nwords + 2 + cols) + 1),
+        opts.memory_budget_bytes,
+    )
     LOG.debug(
         "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s rows=%s "
-        "score_cap=%d call_b=%d full_window=%s cert_bound=%d devices=%d",
+        "score_cap=%d call_b=%d chunks=%d depth=%d full_window=%s "
+        "cert_bound=%d devices=%d",
         plan.tier, len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, rows,
-        score_cap, call_b, full_window, cert_bound, ndev,
+        score_cap, call_b, n_chunks, depth, full_window, cert_bound, ndev,
     )
-    for start in range(0, len(idxs), ndev * call_b):
-        chunk = idxs[start : start + ndev * call_b]
-        pats = [patterns[i] for i in chunk]
-        txts = [texts[i] for i in chunk]
-        pat_w, p_len, p_ok = pack_batch(pats, plan.nwords)
-        txt_w, t_len, t_ok = pack_batch(txts, plan.nwords)
-        args = batch_to_tensors(pat_w, p_len, txt_w, t_len, p_ok & t_ok, device)
+    on_card = any(d.type == "cuda" for d in mesh or [device])
+    # Page-locked allocations only here, before the first launch: one
+    # between two launches would serialise them.
+    slots = [_HostSlot(slot_rows, plan.nwords, cols, on_card)
+             for _ in range(depth)]
+
+    def dispatch(slot, pats, txts):
+        """Phase 1 for one chunk; returns a function that waits for the
+        chunk's copy back and gives its [n, cols] int32 rows."""
+        host = slot.fill(pats, txts, plan.nwords)
+        n = len(pats)
+        if mesh:
+            if cigar:
+                return parallel_mesh.align_cigar_fused_sharded(
+                    cfg, tb_cfg, mesh, *host, wait=False)
+            finish = parallel_mesh.align_batch_pallas_sharded(
+                cfg, mesh, *host, wait=False)
+            return lambda: _distance_rows(finish())
+        args = tuple(t.to(device, non_blocking=True) for t in host)
+        if cigar:
+            out = engine_cuda.align_cigar_cuda(cfg, tb_cfg, *args)
+        else:
+            out = _distance_rows(engine_cuda.align_batch_cuda(cfg, *args))
+        slot.out[:n].copy_(out, non_blocking=True)
+        if device.type != "cuda":
+            return lambda: slot.out[:n]
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+
+        def wait():
+            done.synchronize()
+            return slot.out[:n]
+        return wait
+
+    def consume(chunk, pats, txts, wait) -> None:
+        """Phase 2 for one chunk: decode and place its results."""
+        arr = wait().numpy()
+        dist = arr[:, 0]
+        fin = arr[:, 1] != 0
         cigars: list[str | None] = [None] * len(chunk)
         if cigar:
-            # One copy back per chunk: distances, flags, op counts, streams.
-            if ndev > 1:
-                fused = parallel_mesh.align_cigar_fused_sharded(
-                    cfg, tb_cfg, mesh, *args)
-            else:
-                fused = engine_cuda.align_cigar_cuda(cfg, tb_cfg, *args)
-            arr = fused.cpu().numpy()
-            dist = arr[:, 0]
-            fin = arr[:, 1] != 0
             n_ops = arr[:, 2]
             ops_w = np.ascontiguousarray(arr[:, 4:])
             if native.available():
@@ -297,13 +391,6 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
                     if fin[b] and n_ops[b] >= 0 else None
                     for b in range(len(chunk))
                 ]
-        else:
-            if ndev > 1:
-                out = parallel_mesh.align_batch_pallas_sharded(cfg, mesh, *args)
-            else:
-                out = engine_cuda.align_batch_cuda(cfg, *args)
-            dist = out["distance"].cpu().numpy()
-            fin = out["finished"].cpu().numpy()
         for b, i in enumerate(chunk):
             ok = fin[b] and (full_window or int(dist[b]) < cert_bound)
             if cigar and ok and cigars[b] is None:
@@ -315,6 +402,28 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
                 )
             else:
                 need_cpu[i] = True
+
+    pending = []
+    peak = 0
+    for k, start in enumerate(range(0, len(idxs), step)):
+        # Decode before packing, so that at most `depth` chunks hold a slot.
+        while len(pending) >= depth:
+            consume(*pending.pop(0))
+        chunk = idxs[start : start + step]
+        pats = [patterns[i] for i in chunk]
+        txts = [texts[i] for i in chunk]
+        pending.append((chunk, pats, txts,
+                        dispatch(slots[k % depth], pats, txts)))
+        peak = max(peak, len(pending))
+    for item in pending:
+        consume(*item)
+    return {"chunks": n_chunks, "depth": depth, "peak": peak}
+
+
+def _distance_rows(out: dict) -> torch.Tensor:
+    """K1/K4's outputs as one [B, 2] int32 tensor (distance, finished), so
+    that a chunk copies back once (``wfa_tpu/aligner.py:513-518``)."""
+    return torch.stack([out["distance"], out["finished"].to(torch.int32)], 1)
 
 
 # The probe_order pass's window, and the hint of a pair it left unfinished.

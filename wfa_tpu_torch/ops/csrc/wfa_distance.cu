@@ -7,9 +7,12 @@
 // 4-bit backtrace choice (_mk_choice), in the Pallas kernel's layout
 // choice[d >> 3, b, j] at nibble d & 7 (the choice spill and its trailing
 // flush), and in banded mode the window base of each score, lo_trace[b, d]
-// (the lo spill).  K4 (kRingGlobal = true, exact only, with or without
-// kCigar) replaces the same kernel with ring_hbm=True: windows wider than a
-// block's shared memory holds as a whole ring.  Their plain versions are
+// (the lo spill).  K4 (kRingGlobal = true, with or without kCigar) replaces
+// the same kernel with ring_hbm=True: exact windows wider than a block's
+// shared memory holds as a whole ring.  K4 with a band (kBanded and
+// kRingGlobal) is the card's counterpart of wfa_tpu's XLA route for banded
+// windows past the Pallas width cap (wfa_tpu/aligner.py:637-646, which runs
+// wfa_tpu/ops/engine_xla.py there).  Their plain versions are
 // wfa_tpu_torch/ops/engine_torch.py::align_batch_device (K1, K4 distance)
 // and engine_torch.cigar_tables (K2, K4 CIGAR); the kernels agree with them
 // in every lane, including the score reported by lanes that run out of
@@ -55,6 +58,13 @@
 // (wide10k: about a tenth).  K4 also copies the block's two packed rows
 // into shared memory once, so the extension's loads are shared loads, and
 // runs 1024 threads a block (shared memory allows one block an SM).
+// Banded K4 keeps window lanes 0 .. C - 1 in shared memory instead (cl = 0):
+// a banded window grows from lane 0 until it reaches W, so its early scores
+// never touch the edges; once at full width every score computes every lane
+// wherever the centre lies.  Every banded read and write of the ring, the
+// re-centre's argmin included, goes through ring_ld / ring_st.  It runs 512
+// threads a block, as K1/K2 banded, and neither the cone nor exact mode's I
+// reset applies (i_reset is NULL).
 //
 // K2's choice rows: each thread ORs the nibble of each score it computes
 // into the current row word of the diagonal.  The row words live in shared
@@ -90,9 +100,11 @@
 // SM's issue slots.  K2 adds one coalesced store of the cone's words per 8
 // scores.  K4 adds the edge traffic, 28 bytes a cell of the edges, at the
 // rate of L2 or of HBM (tools/torch_ring_bw.py measures it for this access
-// pattern).  Later work: the per-score work every banded thread repeats
-// (the window's bounds), several alignments per block, and for K4
-// thread-block clusters when a launch has fewer pairs than SMs.
+// pattern); banded K4 has no cone, so once its window is full every score
+// reads and writes the whole edge.  Later work: the per-score work every
+// banded thread repeats (the window's bounds), several alignments per
+// block, and for K4 thread-block clusters when a launch has fewer pairs
+// than SMs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (wfa_tpu_torch/ops/_build.py).  Plain C entry
@@ -108,8 +120,8 @@ namespace {
 
 using wfa::kNull;
 constexpr int kBig = 1 << 20;         // window bound standing in for a missing parent
-constexpr int kMaxThreadsBanded = 512;  // K1, K2 with a band
-constexpr int kMaxThreadsExact = 1024;  // K1, K2 exact, and K4
+constexpr int kMaxThreadsBanded = 512;  // K1, K2 and K4 with a band
+constexpr int kMaxThreadsExact = 1024;  // K1, K2 and K4 exact
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 constexpr int kScratchInts = 66;      // argmin partials (2 per warp, <= 32 warps) + 2
 constexpr int kSchedCols = 7;         // score, out, mx, moe, ide, radius, previous radius
@@ -245,11 +257,6 @@ __device__ __forceinline__ uint32_t choice_of(int m_pb, int i_pb, int d_pb) {
                                ((d_pb & 3) == 2 ? wfa::kDExtBit : 0));
 }
 
-// Parent window read at a shifted position; outside [0, ext] reads NULL.
-__device__ __forceinline__ int window_read(const int* row, int rel, int ext) {
-  return (rel < 0 || rel > ext) ? kNull : row[rel];
-}
-
 // Lexicographic min of (value, index): the first index wins a tie.
 __device__ __forceinline__ void argmin_merge(int& v, int& j, int ov, int oj) {
   if (ov < v || (ov == v && oj < j)) {
@@ -261,8 +268,8 @@ __device__ __forceinline__ void argmin_merge(int& v, int& j, int ov, int oj) {
 // Blocks of the most threads an SM must hold by registers (the second
 // argument of __launch_bounds__).  Exact K1/K2 with staged rows: two of 1024
 // threads, at most 32 registers a thread, as their narrow windows want many
-// resident blocks.  K4 and K1/K2 with the rows in global memory fill shared
-// memory, so an SM holds one block anyway.  Banded blocks take the registers
+// resident blocks.  K4 (banded: 512 threads) and K1/K2 with the rows in
+// global memory fill shared memory, so an SM holds one block anyway.  Banded blocks take the registers
 // they need (two 512-thread blocks an SM at HiFi): capping them at 40 or 32
 // spilled or lengthened each block's chain more than the third and fourth
 // resident block gained (PERF.md).
@@ -278,7 +285,6 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
            unsigned char* __restrict__ fin_out,
            int* __restrict__ choice, int num_chunks,
            int* __restrict__ lo_trace, int lo_stride, int* edge, int centre) {
-  static_assert(!(kBanded && kRingGlobal), "the global ring is exact only");
   static_assert(kSeqShared || !kRingGlobal, "K4 stages the packed rows");
   extern __shared__ int smem[];
   const int b = blockIdx.x;
@@ -300,10 +306,11 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
   const int target_off = tlen;
   const int W2 = W / 2;
 
-  // The ring's rows hold diagonals cl .. cl + C - 1 in shared memory (all W
-  // for K1/K2); K4's edges, W - C a row, are in this block's global slab.
+  // The ring's rows hold lanes cl .. cl + C - 1 in shared memory (all W for
+  // K1/K2; banded K4 from lane 0); K4's edges, W - C a row, are in this
+  // block's global slab.
   const int C = kRingGlobal ? centre : W;
-  const int cl = (W - C) / 2;
+  const int cl = kBanded ? 0 : (W - C) / 2;
   const int WE = W - C;
   int* ring_s = smem;
   int* win_lo = ring_s + 3 * A * C;
@@ -341,6 +348,10 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       return;
     }
     ring_s[row * W + j] = v;
+  };
+  // Banded: a parent window read at a shifted lane; outside [0, ext] NULL.
+  auto win_read = [&](int row, int rel, int ext) -> int {
+    return (rel < 0 || rel > ext) ? kNull : ring_ld(row, rel);
   };
   // Exact mode resets I to NULL + 1, the lower bound of what the plain
   // engine's I rows hold outside the cone (see the cone, above).
@@ -452,11 +463,10 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
           win_ext[sx] >= W - 1) {
         const int lox = win_lo[sx];
         const int extx = win_ext[sx];
-        const int* mx = ring_s + sx * W;
         int best = INT_MAX;
         int best_j = INT_MAX;
         for (int j = tid; j < extx; j += nthreads) {
-          const int m = mx[j];
+          const int m = ring_ld(sx, j);
           if (m >= 0) {
             argmin_merge(best, best_j, max(plen - (m - (lox + j)), tlen - m), j);
           }
@@ -509,18 +519,15 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
         if (live && j > ext_n) reset_cell(oslot, j);
         live = live && j <= ext_n;
         // Child lane j is diagonal lo_n + j; each parent is read at its
-        // own window base.
-        const int* M = ring_s;
-        const int* I = ring_s + A * W;
-        const int* D = I + A * W;
+        // own window base (rows: M slot, A + I slot, 2A + D slot).
         const int r_oe = soe < 0 ? 0 : lo_n - win_lo[soe] + j;
         const int r_e = se < 0 ? 0 : lo_n - win_lo[se] + j;
         const int r_x = sx < 0 ? 0 : lo_n - win_lo[sx] + j;
-        i_open = soe < 0 ? kNull : window_read(M + soe * W, r_oe - 1, win_ext[soe]);
-        d_open = soe < 0 ? kNull : window_read(M + soe * W, r_oe + 1, win_ext[soe]);
-        i_ext = se < 0 ? kNull : window_read(I + se * W, r_e - 1, win_ext[se]);
-        d_ext = se < 0 ? kNull : window_read(D + se * W, r_e + 1, win_ext[se]);
-        x_off = sx < 0 ? kNull : window_read(M + sx * W, r_x, win_ext[sx]);
+        i_open = soe < 0 ? kNull : win_read(soe, r_oe - 1, win_ext[soe]);
+        d_open = soe < 0 ? kNull : win_read(soe, r_oe + 1, win_ext[soe]);
+        i_ext = se < 0 ? kNull : win_read(A + se, r_e - 1, win_ext[se]);
+        d_ext = se < 0 ? kNull : win_read(2 * A + se, r_e + 1, win_ext[se]);
+        x_off = sx < 0 ? kNull : win_read(sx, r_x, win_ext[sx]);
         k = lo_n + j;
       } else if (!kRingGlobal || (j > cl && j + 1 < cl + C)) {
         // The cell and its parents in shared memory (for K4 never at the
@@ -625,13 +632,14 @@ struct Variant {
 };
 
 // Calls fn(Variant<...>{}) with the instantiation for these arguments: K4
-// when centre >= 0 (exact only, rows always staged), else K1/K2 banded or
-// exact, with the rows staged or not.
+// banded or exact when centre >= 0 (rows always staged), else K1/K2 banded
+// or exact, with the rows staged or not.
 template <bool kCigar, class Fn>
 int with_variant(int band, int centre, int rows_shared, Fn&& fn) {
   if (centre >= 0) {
-    if (band > 0 || !rows_shared) return static_cast<int>(cudaErrorInvalidValue);
-    return fn(Variant<false, kCigar, true, true>{});
+    if (!rows_shared) return static_cast<int>(cudaErrorInvalidValue);
+    return band > 0 ? fn(Variant<true, kCigar, true, true>{})
+                    : fn(Variant<false, kCigar, true, true>{});
   }
   if (band > 0) {
     return rows_shared ? fn(Variant<true, kCigar, false, true>{})
@@ -703,8 +711,8 @@ int dispatch(const void* pat, const void* txt, int nw, const void* plen,
 extern "C" {
 
 // K1 (centre < 0) or K4 (centre >= 0: the ring's centre in shared memory,
-// edge: [B, 3A, W - centre] int32 scratch, null when centre == W; exact
-// only) on `stream` over B alignments of `threads` (0: see launch) threads;
+// edge: [B, 3A, W - centre] int32 scratch, null when centre == W) on
+// `stream` over B alignments of `threads` (0: see launch) threads;
 // rows_shared != 0
 // stages the packed rows in shared memory (K4 requires it); returns a
 // cudaError_t (0 = ok).
@@ -724,7 +732,7 @@ int wfa_distance_launch(const void* pat, const void* txt, int nw,
                          device, stream);
 }
 
-// K2, or K4 in CIGAR mode when centre >= 0 (exact only): K1 plus the
+// K2, or K4 in CIGAR mode when centre >= 0: K1 plus the
 // choice table and, when banded, the window base by score.
 // choice: [num_chunks, B, W] int32 out, the 4-bit choice of score d at
 // nibble d & 7 of row d >> 3; lo_trace: [B, lo_stride] int32 out (banded

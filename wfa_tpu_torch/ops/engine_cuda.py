@@ -7,19 +7,21 @@ and K3 (``csrc/wfa_traceback.cu``).
 ``traceback_cuda`` (K3) those of ``traceback_torch.traceback_batch_device``,
 and ``align_cigar_cuda`` launches K2 then K3 and returns the fused rows of
 ``traceback_torch.align_cigar_fused``.  With ``cfg.ring_global`` the first
-two and ``align_cigar_cuda`` launch K4 in place of K1 and K2: the same
-outputs, with the ring's centre (``centre_width`` diagonals around W/2) in
-shared memory and its edges in a global scratch buffer.  K1 and K2 stage the
+two and ``align_cigar_cuda`` launch K4 in place of K1 and K2, exact or
+banded: the same outputs, with ``centre_width`` lanes of the ring in shared
+memory (exact: the diagonals around W/2; banded: the window's first lanes)
+and its edges in a global scratch buffer.  K1 and K2 stage the
 two packed rows in shared memory where they fit beside the ring
 (``rows_fit``, host arithmetic before the launch) and read them from global
 memory where they do not.  K3 walks each alignment with one warp, two walks
 a block (``TRACEBACK_WARPS``), with the current choice row's window in
 registers and the next three rows' copied ahead into shared memory.  On CPU tensors each runs its plain version; on
 CUDA tensors it launches its kernel on the current stream or raises — it
-never falls back.  ``LAUNCHES`` counts each kernel's launches, and K1's and
-K2's by row placement (``rows_shared``, ``rows_global``), so a run can show
-that its main path went through the kernels; the counts are exact when
-several threads launch at once.
+never falls back.  ``LAUNCHES`` counts each kernel's launches (banded K4
+apart from exact K4: ``*_ring_banded``), and K1's and K2's by row placement
+(``rows_shared``, ``rows_global``), so a run can show that its main path
+went through the kernels; the counts are exact when several threads launch
+at once.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from .traceback_torch import TracebackConfig
 LAUNCHES = {
     "wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
     "wfa_distance_ring": 0, "wfa_cigar_ring": 0,
+    "wfa_distance_ring_banded": 0, "wfa_cigar_ring_banded": 0,
     "rows_shared": 0, "rows_global": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()
@@ -73,10 +76,11 @@ def rows_fit(active_working_set: int, width: int, nwords: int, cigar: bool,
 
 def centre_width(active_working_set: int, width: int, nwords: int,
                  cigar: bool, smem: int) -> int:
-    """K4's centre: the most diagonals around W/2, a multiple of
-    ``CENTRE_GRANULE`` and at most W, whose [3A, C] ring fits ``smem`` beside
-    the rest of the block's shared memory (``smem_bytes``).  Raises
-    ValueError when not even one granule fits."""
+    """K4's centre: the most lanes, a multiple of ``CENTRE_GRANULE`` and at
+    most W, whose [3A, C] ring fits ``smem`` beside the rest of the block's
+    shared memory (``smem_bytes``); exact K4 holds the diagonals around W/2
+    there, banded K4 the window's lanes 0 .. C - 1.  Raises ValueError when
+    not even one granule fits."""
     A = active_working_set
     fixed = smem_bytes(A, width, cigar, True, 0, nwords)
     c = min(width, max(smem - fixed, 0) // (12 * A)
@@ -187,9 +191,8 @@ def _placement(cfg: EngineConfig, nw: int, cigar: bool, centre: int | None,
 
 def _check_batch(cfg: EngineConfig, pat, txt, plen, tlen, valid, cigar: bool,
                  centre: int | None, rows: str | None):
-    """Validate the inputs of K1/K2/K4 on a CUDA device (a band with
-    ``ring_global`` cannot reach here: ``EngineConfig`` refuses it); returns
-    (B, nw, centre, rows_shared) (``_placement``)."""
+    """Validate the inputs of K1/K2/K4 (exact or banded) on a CUDA device;
+    returns (B, nw, centre, rows_shared) (``_placement``)."""
     device = pat.device
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
@@ -268,14 +271,14 @@ def align_batch_cuda(
         None if edges is None else edges.data_ptr(), centre, int(shared),
         _threads, B, device.index, stream,
     ))
-    _count("wfa_distance", cfg.ring_global, shared)
+    _count("wfa_distance", cfg, shared)
     return {"distance": dist, "finished": fin}
 
 
-def _count(kernel: str, ring_global: bool, rows_shared: bool) -> None:
-    """One launch of K1/K2 (by row placement) or K4."""
-    if ring_global:
-        _bump(kernel + "_ring")
+def _count(kernel: str, cfg: EngineConfig, rows_shared: bool) -> None:
+    """One launch of K1/K2 (by row placement) or K4 (exact or banded)."""
+    if cfg.ring_global:
+        _bump(kernel + ("_ring_banded" if cfg.banded else "_ring"))
     else:
         _bump(kernel, "rows_shared" if rows_shared else "rows_global")
 
@@ -342,7 +345,7 @@ def cigar_tables_cuda(
         lo_ptr, lo_stride, None if edges is None else edges.data_ptr(),
         centre, int(shared), _threads, B, device.index, stream,
     ))
-    _count("wfa_cigar", cfg.ring_global, shared)
+    _count("wfa_cigar", cfg, shared)
     return res
 
 

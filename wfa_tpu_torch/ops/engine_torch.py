@@ -13,9 +13,9 @@ CUDA kernels of ``ops/csrc/wfa_distance.cu``: K1 must equal
 engine plus ``choices_to_words``, the relayout into the Pallas kernel's
 by-score table) wherever a backward walk can read (in exact mode, on each
 score's cone: ``readable_masks``).  K4, the same kernels with the wavefront
-ring's edges in global memory (``EngineConfig.ring_global``), must equal
-the same two functions at the same config: this engine has no shared
-memory, so it ignores the flag.  Unlike the TPU kernel it has no limit on
+ring's edges in global memory (``EngineConfig.ring_global``, exact or
+banded), must equal the same two functions at the same config: this engine
+has no shared memory, so it ignores the flag.  Unlike the TPU kernel it has no limit on
 the working set.
 
 Torch specifics:
@@ -68,15 +68,11 @@ class EngineConfig:
     score_limit: int | None = None
     # Also return the per-step backtrace choices and window bases.
     compute_cigar: bool = False
-    # Exact only: on the CUDA kernels, keep only the M/I/D ring's centre in
-    # shared memory and its edges in global memory (K4), for windows wider
-    # than a block's shared memory holds (PallasConfig.ring_hbm).  The plain
-    # engine ignores it.
+    # On the CUDA kernels, keep only part of the M/I/D ring in shared memory
+    # and its edges in global memory (K4), for windows wider than a block's
+    # shared memory holds: exact (PallasConfig.ring_hbm) or banded (where
+    # wfa_tpu runs its XLA engine).  The plain engine ignores it.
     ring_global: bool = False
-
-    def __post_init__(self):
-        if self.ring_global and self.banded:
-            raise ValueError("ring_global is exact only; it takes no band")
 
     @property
     def banded(self) -> bool:

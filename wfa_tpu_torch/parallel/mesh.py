@@ -77,12 +77,16 @@ def _to_host(out):
 
 
 def _run_blocks(mesh: Sequence[torch.device], fn: Callable,
-                args: Sequence[tuple[torch.Tensor | None, int]]) -> list:
+                args: Sequence[tuple[torch.Tensor | None, int]],
+                wait: bool = True):
     """``fn`` on the i-th contiguous block of every argument on ``mesh[i]``.
 
     ``args`` are (tensor or None, batch dimension) pairs.  Returns each
-    block's output on the host, in block order, once all are done.  A batch
-    smaller than the mesh uses its first devices, one pair each."""
+    block's output on the host, in block order, once all are done; with
+    ``wait=False``, once everything is enqueued, a function that waits for
+    the blocks and returns the same list (the aligner's chunk loop enqueues
+    the next chunk meanwhile).  A batch smaller than the mesh uses its first
+    devices, one pair each."""
     if not mesh:
         raise ValueError("no device to run on")
     n = next(t.shape[dim] for t, dim in args if t is not None)
@@ -121,12 +125,16 @@ def _run_blocks(mesh: Sequence[torch.device], fn: Callable,
             done = torch.cuda.Event()
             pending.append((_to_host(out), done))
             done.record(stream)
-    outs = []
-    for out, done in pending:
-        if done is not None:
-            done.synchronize()
-        outs.append(out)
-    return outs
+
+    def finish() -> list:
+        outs = []
+        for out, done in pending:
+            if done is not None:
+                done.synchronize()
+            outs.append(out)
+        return outs
+
+    return finish() if wait else finish
 
 
 def _cat(outs: list) -> dict[str, torch.Tensor]:
@@ -164,14 +172,16 @@ def align_batch_pallas_sharded(
     plen: torch.Tensor,
     tlen: torch.Tensor,
     valid: torch.Tensor,
-) -> dict[str, torch.Tensor]:
+    *, wait: bool = True,
+):
     """K1 (K4 with ``cfg.ring_global``) on each block
     (``engine_cuda.align_batch_cuda``): ``distance`` and ``finished`` on the
-    host."""
-    return _cat(_run_blocks(
+    host; with ``wait=False`` a function that waits and returns them."""
+    finish = _run_blocks(
         mesh, lambda *a: engine_cuda.align_batch_cuda(cfg, *a),
-        _batch_args(pat, txt, plen, tlen, valid),
-    ))
+        _batch_args(pat, txt, plen, tlen, valid), wait=False,
+    )
+    return _cat(finish()) if wait else lambda: _cat(finish())
 
 
 def align_cigar_fused_sharded(
@@ -183,15 +193,18 @@ def align_cigar_fused_sharded(
     plen: torch.Tensor,
     tlen: torch.Tensor,
     valid: torch.Tensor,
-) -> torch.Tensor:
+    *, wait: bool = True,
+):
     """K2 (K4 with ``cfg.ring_global``) then K3 on each block
     (``engine_cuda.align_cigar_cuda``): the [B, 4 + opw] int32 rows on the
-    host; ``opw`` comes from ``tb_cfg`` alone, so every block's rows are as
+    host, or with ``wait=False`` a function that waits and returns them;
+    ``opw`` comes from ``tb_cfg`` alone, so every block's rows are as
     wide."""
-    return torch.cat(_run_blocks(
+    finish = _run_blocks(
         mesh, lambda *a: engine_cuda.align_cigar_cuda(cfg, tb_cfg, *a),
-        _batch_args(pat, txt, plen, tlen, valid),
-    ))
+        _batch_args(pat, txt, plen, tlen, valid), wait=False,
+    )
+    return torch.cat(finish()) if wait else lambda: torch.cat(finish())
 
 
 def traceback_batch_sharded(
