@@ -39,7 +39,7 @@ and the stored references; two processes in a gloo group on localhost, each
 running the CLI on its strided half of wfa.utest.seq, whose gathered and
 merged scores equal the golden file; probe_order: _probe_distances
 launches K1 once at W=128, and align_pairs gives the same results with and
-without it; band recall on 128 x 20 kbp reads (tools/torch_nanopore_recall.py),
+without it, also where the probe runs on banded K4; band recall on 128 x 20 kbp reads (tools/torch_nanopore_recall.py),
 uniform and burst: K4's certified exact references at W=6144, held against
 the CPU oracle, and K1 banded at W = 128, 256, 512 and 1024 (uniform: every
 pair finished and optimal at every width; burst: K1 equal to the plain
@@ -49,10 +49,16 @@ pack_batch_torch on the card equal to pack_batch; banded K4 (banded windows
 wider than a shared ring, wfa_distance.cu with a band and the global ring)
 against the plain engine on the card, distances, flags, every choice nibble
 a walk reads, lo_trace and the walked rows, at (2,3,1) W=4096 and, with
-CIGARs, 3840, (4,12,6) W=1024, (70,6,2) W=512 and two pinned centres; the
+CIGARs, 3840, (4,12,6) W=1024, (70,6,2) W=512 and two pinned centres, each
+also at centres of 0, 32, W/2 and W; the
 burst reads at W=2048 (K1) and 4096 (banded K4) in both modes, their recall,
-kernel times against the plain engine and align_pairs(band_width=4096)
-end to end, every CIGAR replayed; the chunk loop of align_pairs (every chunk
+kernel times (banded K4 at 512 and 1024 threads) against the plain engine and align_pairs(band_width=4096)
+end to end, every CIGAR replayed; large working sets at (600,6,2), A = 601,
+where K4 keeps the whole ring in global memory: exact and banded K4 in both
+modes against the plain engine on 100 bp, 1 kbp and (exact CIGAR) 10 kbp
+pairs, align_pairs on them against the CPU engine's exact scores, and K4 at
+centres of 0 and 32 (A = 581) and on wide10k; probe_order at (149,6,2) (the
+probe on K1) and (150,6,2), A = 151 (on banded K4); the chunk loop of align_pairs (every chunk
 of a tier packed and launched before the first is decoded) on seq_10K_n100
 x4 and HiFi x32 with CIGARs, against a depth of one, with the profiler's
 device-busy share; and the CLI's -B auto -t 4096 on the HiFi FASTA pairs,
@@ -253,8 +259,14 @@ def main() -> int:
     def cuda_ms(fn, reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        out = None
         start.record()
         for _ in range(reps):
+            # Drop the last output first, so that the next call can reuse
+            # its memory: a second block of a large output (K4's choice
+            # table at wide10k is 0.9 GB) would be allocated inside the
+            # timed span.
+            out = None
             out = fn()
         end.record()
         torch.cuda.synchronize()
@@ -465,6 +477,8 @@ def main() -> int:
         cells = row_words = 0
         for d in reach:
             upto = scores <= d
+            if not upto.any():      # distance 0: score 0 alone, no step
+                continue
             cells += int(lanes[upto].sum())
             group = scores[upto] >> 3
             last = np.append(group[1:] != group[:-1], True)
@@ -1015,11 +1029,13 @@ def main() -> int:
     t0 = time.perf_counter()
     n_cases = n_lanes = n_same = n_cross = 0
     # (pen, W, pinned centre or None, threads or 0): the pinned centres are
-    # narrower than the cone, so cells cross from shared to global memory.
+    # narrower than the cone, so cells cross from shared to global memory
+    # (a centre of 0: every cell).
     cases = [(pen, w, None, 0) for pen in pens for w in (128, 512, 1024)]
     cases += [(Penalties(70, 6, 2), 512, None, 0),   # a ring of 436 KB per block
               (Penalties(2, 3, 1), 512, 64, 0), (Penalties(4, 1, 2), 1024, 128, 512),
-              (Penalties(70, 6, 2), 512, 64, 0), (Penalties(3, 1, 3), 512, 32, 0)]
+              (Penalties(70, 6, 2), 512, 64, 0), (Penalties(3, 1, 3), 512, 32, 0),
+              (Penalties(2, 3, 1), 512, 0, 0), (Penalties(3, 1, 3), 512, 0, 0)]
     for pen, w, centre, threads in cases:
         pairs = EDGE_PAIRS + random_pairs(rng, 96, 10, 1000)
         args = tensors(pairs, invalid_every=13)
@@ -1460,22 +1476,34 @@ def main() -> int:
 
     def kernel_trace(fn):
         """fn's K1-K4 launches in a torch.profiler trace: (us from the first
-        one's start to the last one's end, us summed, launches)."""
+        one's start to the last one's end, us summed, launches, calls).  A
+        trace that lost some of the call's kernels (the profiler has dropped
+        them late in this long process) is taken again with another call,
+        three calls at most; ``calls`` says which call the reading is of."""
         from torch.profiler import ProfilerActivity, profile
 
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
+        def launched():
+            return sum(v for k, v in engine_cuda.LAUNCHES.items() if k.startswith("wfa_"))
+
+        for calls in range(1, 4):
+            before = launched()
             torch.cuda.synchronize()
-        path = ROOT / "build" / "profile" / "data_parallel.json"
-        path.parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(path))
-        ks = [e for e in json.loads(path.read_text())["traceEvents"]
-              if e.get("cat") == "kernel"
-              and re.search(r"wfa_(kernel|traceback)", e["name"])]
-        require(ks, "data-parallel: the trace names no K1-K4 kernel")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            path = ROOT / "build" / "profile" / "data_parallel.json"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            prof.export_chrome_trace(str(path))
+            ks = [e for e in json.loads(path.read_text())["traceEvents"]
+                  if e.get("cat") == "kernel"
+                  and re.search(r"wfa_(kernel|traceback)", e["name"])]
+            if len(ks) == launched() - before:
+                break
+        require(ks and len(ks) == launched() - before,
+                f"data-parallel: three traces in a row hold {len(ks)} of the "
+                f"call's {launched() - before} K1-K4 launches")
         span = max(e["ts"] + e["dur"] for e in ks) - min(e["ts"] for e in ks)
-        return span, sum(e["dur"] for e in ks), len(ks)
+        return span, sum(e["dur"] for e in ks), len(ks), calls
 
     pen = Penalties(2, 3, 1)
     two = [dev, dev]
@@ -1516,6 +1544,10 @@ def main() -> int:
         # block, so that no block allocates device memory between launches
         # (an allocation there keeps two streams' kernels from overlapping).
         spans = []
+
+        def call(t):
+            return "" if t[3] == 1 else f" (call {t[3]}: the traces before lost kernels)"
+
         for mode, one_fn, two_fn in (
             ("distance", lambda: engine_cuda.align_batch_cuda(dcfg, *dargs),
              lambda: parallel_mesh.align_batch_pallas_sharded(dcfg, two, *dargs)),
@@ -1528,10 +1560,13 @@ def main() -> int:
                 two_fn()
             warm = kernel_trace(two_fn)
             spans.append(
-                f"{mode} one launch {one_t[0] / 1e3:.3f} ms, two blocks "
-                f"{first[0] / 1e3:.3f} ms first call ({first[1] / 1e3:.3f} summed), "
+                f"{mode} one launch {one_t[0] / 1e3:.3f} ms{call(one_t)}, two blocks "
+                f"{first[0] / 1e3:.3f} ms "
+                + ("first call" if first[3] == 1 else
+                   f"at call {first[3]}, not the first (the traces before lost kernels)")
+                + f" ({first[1] / 1e3:.3f} summed), "
                 f"{warm[0] / 1e3:.3f} ms warm ({warm[1] / 1e3:.3f} summed, "
-                f"{warm[2]} launches)")
+                f"{warm[2]} launches){call(warm)}")
         host = {}
         for blocks_n in (1, 2, 2, 1):
             t1 = time.perf_counter()
@@ -1690,12 +1725,47 @@ def main() -> int:
             "probe-order: probe_order=True changes the results")
     require([r.error for r in probe_res[True]] == ref["distance"] * HIFI_REPS,
             "probe-order: distances differ from the stored reference")
+    # Large working sets: at W=128 a shared ring holds A = 150, so the probe
+    # runs on K1 at (149,6,2) and on banded K4 from (150,6,2), A = 151, on;
+    # the 50 HiFi pairs, with and without the probe.
+    hp, ht = pats[:50], txts[:50]
+    hargs = tensors(list(zip(hp, ht)))
+    big_probe = []
+    for x, kernel in ((149, "wfa_distance"), (150, "wfa_distance_ring_banded")):
+        xpen = Penalties(x, 6, 2)
+        xcfg = aligner._probe_config(xpen, 3000, 25, smem)
+        require(xcfg.ring_global == (x >= 150),
+                f"probe-order: the probe's config at A={x + 1}: {xcfg}")
+        xopts = dataclasses.replace(popts, penalties=xpen)
+        res, counts = {}, {}
+        for order in (False, True):
+            reset_launches()
+            res[order] = align_pairs(hp, ht, dataclasses.replace(
+                xopts, probe_order=order))
+            torch.cuda.synchronize()
+            counts[order] = dict(engine_cuda.LAUNCHES)
+        diff = {k: counts[True][k] - counts[False][k] for k in counts[True]
+                if not k.startswith("rows_")}
+        require(res[True] == res[False],
+                f"probe-order at ({x},6,2): probe_order=True changes the results")
+        require(diff[kernel] >= 1 and all(v == 0 for k, v in diff.items() if k != kernel),
+                f"probe-order at ({x},6,2): the probe launched {diff}, expected {kernel}")
+        xms = cuda_ms(
+            lambda: engine_cuda.align_batch_cuda(xcfg, *hargs), 5)[0]
+        big_probe.append(
+            f"({x},6,2) A={x + 1}: the probe on {kernel} ({diff[kernel]} launch(es) "
+            f"over the device passes; W=128, "
+            + (f"C={engine_cuda.centre_width(x + 1, 128, hargs[0].shape[1], False, smem)}"
+               if xcfg.ring_global else "shared ring") + f") {xms:.3f} ms on 50 pairs, "
+            f"{sum(r.finished_on_accelerator for r in res[True])}/50 on the card, "
+            "results equal with and without it")
     phase("probe-order", t0,
           f"{n} pairs: the probe (K1, W=128, band 25) {probe_ms:.3f} ms on the "
           f"card, {probe_s * 1e3:.3f} ms for _probe_distances, "
           f"{int((want_hints < (1 << 30)).sum())}/{n} finished in the band; "
           f"align_pairs probe_order=False {', '.join(f'{v:.3f}' for v in walls[False])} ms, "
-          f"True {', '.join(f'{v:.3f}' for v in walls[True])} ms, results equal; [{smi}]")
+          f"True {', '.join(f'{v:.3f}' for v in walls[True])} ms, results equal; "
+          + "; ".join(big_probe) + f"; [{smi}]")
 
     # ---- 19. nanopore: 128 x 20 kbp at 6% error, K4 references, K1 banded ----
     t0 = time.perf_counter()
@@ -1920,41 +1990,56 @@ def main() -> int:
     ]
     br_lines = []
     reset_launches()
+    br_want = {"wfa_distance_ring_banded": 0, "wfa_cigar_ring_banded": 0}
     for name, pen, w, band, centre, steps, pairs, modes in br_cases:
         args = tensors(pairs)
         A = pen.active_working_set
+        nw = args[0].shape[1]
         for cigar in modes:
             what = f"banded-ring {name} {'CIGAR' if cigar else 'distance'}"
             require(centre is not None or w > engine_cuda.max_width(A, smem, cigar),
                     f"{what}: W={w} fits a shared ring")
-            c = centre or engine_cuda.centre_width(A, w, args[0].shape[1], cigar, smem)
+            c = centre if centre is not None else engine_cuda.centre_width(
+                A, w, nw, cigar, smem)
+            # The case's centre, then the other centres a block holds: 0, 32,
+            # W/2 and W.
+            pins = [centre] + [
+                p for p in (0, 32, w // 2, w)
+                if p != c and engine_cuda.smem_bytes(A, w, cigar, True, p, nw) <= smem]
             t1 = time.perf_counter()
             if cigar:
                 cfg, tb = cigar_configs(pen, steps, w, band, ring_global=True)
-                tables = engine_cuda.cigar_tables_cuda(cfg, tb.score_cap, *args,
-                                                       _centre=centre)
-                fused = engine_cuda.align_cigar_cuda(cfg, tb, *args, _centre=centre)
-                torch.cuda.synchronize()
                 plain = engine_torch.cigar_tables(cfg, tb.score_cap, *args)
-                err = (tables["distance"] - plain["distance"]).abs().max().item()
-                require(err == 0 and torch.equal(tables["finished"], plain["finished"]),
-                        f"{what}: distances or flags differ from the plain version")
-                require(engine_torch.tables_equal(cfg, tb.score_cap, plain, tables),
-                        f"{what}: choice nibbles or lo_trace differ where a walk reads")
-                require(torch.equal(fused, fused_plain(tb, plain, args)),
-                        f"{what}: K4 + K3 rows differ from the plain walk")
+                want_fused = fused_plain(tb, plain, args)
+                for pin in pins:
+                    how = f"{what} centre={pin}"
+                    tables = engine_cuda.cigar_tables_cuda(cfg, tb.score_cap, *args,
+                                                           _centre=pin)
+                    fused = engine_cuda.align_cigar_cuda(cfg, tb, *args, _centre=pin)
+                    torch.cuda.synchronize()
+                    err = (tables["distance"] - plain["distance"]).abs().max().item()
+                    require(err == 0 and torch.equal(tables["finished"], plain["finished"]),
+                            f"{how}: distances or flags differ from the plain version")
+                    require(engine_torch.tables_equal(cfg, tb.score_cap, plain, tables),
+                            f"{how}: choice nibbles or lo_trace differ where a walk reads")
+                    require(torch.equal(fused, want_fused),
+                            f"{how}: K4 + K3 rows differ from the plain walk")
                 dist, fin = plain["distance"], plain["finished"]
                 key = "wfa_cigar_ring_banded"
+                br_want[key] += 2 * len(pins)
             else:
                 cfg = engine_torch.EngineConfig(pen, steps, w, band, ring_global=True)
-                got = engine_cuda.align_batch_cuda(cfg, *args, _centre=centre)
-                torch.cuda.synchronize()
                 want = engine_torch.align_batch_device(cfg, *args)
-                err = (got["distance"] - want["distance"]).abs().max().item()
-                require(err == 0 and torch.equal(got["finished"], want["finished"]),
-                        f"{what}: distances or flags differ from the plain version")
+                for pin in pins:
+                    got = engine_cuda.align_batch_cuda(cfg, *args, _centre=pin)
+                    torch.cuda.synchronize()
+                    err = (got["distance"] - want["distance"]).abs().max().item()
+                    require(err == 0 and torch.equal(got["finished"], want["finished"]),
+                            f"{what} centre={pin}: distances or flags differ from "
+                            "the plain version")
                 dist, fin = want["distance"], want["finished"]
                 key = "wfa_distance_ring_banded"
+                br_want[key] += len(pins)
             max_err[key] = max(max_err[key], err)
             scores, widths = banded_widths(cfg)
             edge_at = int(scores[np.argmax(widths > c)])
@@ -1965,17 +2050,18 @@ def main() -> int:
                     f"(C={c}, full at {full_at}, largest distance {reach})")
             br_lines.append(
                 f"{name} {'CIGAR' if cigar else 'distance'} C={c} (edges from "
-                f"score {edge_at}, full at {full_at}), distances "
-                f"{int(dist.min())}..{reach}, {int(fin.sum())}/{len(pairs)} "
+                f"score {edge_at}, full at {full_at}; also at "
+                f"C={', '.join(str(p) for p in pins[1:])}), "
+                f"distances {int(dist.min())}..{reach}, {int(fin.sum())}/{len(pairs)} "
                 f"finished, {time.perf_counter() - t1:.2f}s")
     br_launches = dict(engine_cuda.LAUNCHES)
-    require(br_launches["wfa_distance_ring_banded"] == 5
-            and br_launches["wfa_cigar_ring_banded"] == 10
+    require(all(br_launches[k] == v for k, v in br_want.items())
             and br_launches["wfa_distance_ring"] == br_launches["wfa_cigar_ring"] == 0,
-            f"banded-ring: launches {br_launches}")
+            f"banded-ring: launches {br_launches}, expected {br_want}")
     phase("banded-ring", t0, "K4 banded equal to the plain engine on the card: "
           "distances, flags and, with CIGARs, every nibble a walk reads, "
-          "lo_trace and the walked rows; " + "; ".join(br_lines)
+          "lo_trace and the walked rows, at each case's centre and at every "
+          "other centre of 0, 32, W/2 and W that a block holds; " + "; ".join(br_lines)
           + f"; launches {br_launches}")
 
     # ---- 24. nanopore-burst-wide: the burst reads at W=2048 (K1) and 4096 (banded K4) ----
@@ -1998,6 +2084,21 @@ def main() -> int:
             "nanopore-burst-wide: expected K1 at W=2048 and K4 at W=4096")
     k1_2k_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg2k, *bargs))
     k4b_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg4k, *bargs))
+
+    def k4b_variants(run, want):
+        """Banded K4 at 512 and 1024 threads: ms each, outputs equal to
+        ``want``'s distances and flags."""
+        times = {}
+        for t in (512, 1024):
+            times[t] = best_ms(lambda: run(_threads=t))
+            out = run(_threads=t)
+            require(torch.equal(out["distance"], want["distance"])
+                    and torch.equal(out["finished"], want["finished"]),
+                    f"nanopore-burst-wide: banded K4 ({t} threads) differs")
+        return times
+
+    def variants_line(times):
+        return ", ".join(f"{k} threads {v:.3f} ms" for k, v in times.items())
     occ2k = engine_cuda.blocks_per_sm(cfg2k, bnw, dev)
     occ4k = engine_cuda.blocks_per_sm(cfg4k, bnw, dev)
     c4k = engine_cuda.centre_width(5, 4096, bnw, False, smem)
@@ -2016,6 +2117,8 @@ def main() -> int:
     k4b_plain_ms, plain4k = cuda_ms(
         lambda: engine_torch.align_batch_device(cfg4k, *bargs), 1)
     out4k = wide["outs"][4096]
+    k4b_var = k4b_variants(lambda **kw: engine_cuda.align_batch_cuda(cfg4k, *bargs, **kw),
+                           out4k)
     err = (plain4k["distance"] - out4k["distance"]).abs().max().item()
     require(err == 0 and torch.equal(plain4k["finished"], out4k["finished"]),
             "nanopore-burst-wide: banded K4 at W=4096 differs from the plain engine")
@@ -2031,6 +2134,8 @@ def main() -> int:
     k2_2k_ms = best_ms(lambda: engine_cuda.cigar_tables_cuda(ccfg2k, tb2k.score_cap, *bargs))
     k4bc_ms = best_ms(lambda: engine_cuda.cigar_tables_cuda(ccfg4k, tb4k.score_cap, *bargs))
     tables4k = engine_cuda.cigar_tables_cuda(ccfg4k, tb4k.score_cap, *bargs)
+    k4bc_var = k4b_variants(lambda **kw: engine_cuda.cigar_tables_cuda(
+        ccfg4k, tb4k.score_cap, *bargs, **kw), tables4k)
     k4bc_plain_ms, cplain4k = cuda_ms(
         lambda: engine_torch.cigar_tables(ccfg4k, tb4k.score_cap, *bargs), 1)
     cerr = (cplain4k["distance"] - tables4k["distance"]).abs().max().item()
@@ -2108,14 +2213,16 @@ def main() -> int:
           f"{occ2k[1]} threads an SM, rows "
           f"{'shared' if engine_cuda.rows_fit(5, 2048, bnw, False, smem) else 'global'}), "
           f"banded K4 W=4096 {k4b_ms:.3f} ms ({occ4k[0]} blocks of {occ4k[1]} "
-          f"threads an SM, C={c4k}, edges {engine_cuda.ring_bytes(5, 4096, c4k) * nb / 1e6:.3f} MB), "
+          f"threads an SM, C={c4k}, edges {engine_cuda.ring_bytes(5, 4096, c4k) * nb / 1e6:.3f} MB; "
+          f"{variants_line(k4b_var)}), "
           f"plain {k4b_plain_ms:.3f} ms, bound {k4b_bound[0]:.4f} ms ({k4b_bound[1]}, "
           f"{bcells} cells); at W={wmax}, the widest shared ring: K1 "
           f"{k1_max_ms:.3f} ms, banded K4 {k4_max_ms:.3f} ms (C="
           f"{engine_cuda.centre_width(5, wmax, bnw, False, smem)}), outputs equal; "
           f"CIGAR tables: K2 W=2048 {k2_2k_ms:.3f} ms, banded K4 "
           f"W=4096 {k4bc_ms:.3f} ms (C={c4kc}, edges "
-          f"{engine_cuda.ring_bytes(5, 4096, c4kc) * nb / 1e6:.3f} MB), plain "
+          f"{engine_cuda.ring_bytes(5, 4096, c4kc) * nb / 1e6:.3f} MB; "
+          f"{variants_line(k4bc_var)}), plain "
           f"{k4bc_plain_ms:.3f} ms, bound {k4bc_bound[0]:.4f} ms ({k4bc_bound[1]}); "
           f"K3 walked {walks[2048]} and {walks[4096]} pairs, every CIGAR replays; "
           f"align_pairs(band=25, band_width=4096) distance {w_e2e_s * 1e3:.3f} ms "
@@ -2124,7 +2231,160 @@ def main() -> int:
           f"({k4bc_launches['wfa_cigar_ring_banded']} banded K4 + K3 launches), "
           f"every CIGAR replays; [{smi}]")
 
-    # ---- 25. chunked: a tier over several chunks, every chunk in flight ----
+    # ---- 25. large-working-set: (600,6,2), A = 601, K4 with no shared centre ----
+    t0 = time.perf_counter()
+    bpen = Penalties(600, 6, 2)
+    bA = bpen.active_working_set
+    lrng = np.random.default_rng(601)
+    # (name, pairs, max_error, modes: (banded, cigar)); a shared ring holds no
+    # window at A = 601 and not one granule of centre fits beside the rest.
+    lw_sets = [
+        ("100bp", random_pairs(lrng, 32, 90, 110, 0.1, 0, 0), 1000,
+         ((False, False), (False, True), (True, False), (True, True))),
+        ("1kbp", random_pairs(lrng, 24, 850, 950, 0.05, 0, 0), 3000,
+         ((False, False), (False, True), (True, False), (True, True))),
+        ("10kbp", random_pairs(lrng, 3, 9800, 10000, 0.01, 0, 0), 3000,
+         ((False, True),)),
+    ]
+    lw_lines = []
+    lw_timed = None
+    for name, pairs, merr, modes in lw_sets:
+        lpats = [p for p, _ in pairs]
+        ltxts = [t for _, t in pairs]
+        lens = np.array([max(len(p), len(t)) for p, t in pairs])
+        exact_cpu, _, _ = native.cpu_align_batch(
+            lpats, ltxts, bpen, np.ones(len(pairs), dtype=np.int8), False)
+        for banded, cigar in modes:
+            what = (f"large-working-set {name} {'banded' if banded else 'exact'} "
+                    f"{'CIGAR' if cigar else 'distance'}")
+            band = 25 if banded else -1
+            lopts = AlignmentOptions(penalties=bpen, max_error=merr, band=band,
+                                     band_width=256 if banded else None,
+                                     compute_cigar=cigar, backend="cuda")
+            (plan,) = aligner._plan_tiers(lens, lopts, merr)
+            cfg, full, _, cap = aligner._tier_geometry_cuda(plan, lopts, merr, band, smem)
+            W = cfg.wf_width
+            require(cfg.ring_global and full
+                    and engine_cuda.centre_width(bA, W, plan.nwords, cigar, smem) == 0,
+                    f"{what}: expected K4 with a centre of 0, got {cfg}")
+            args = tensors(pairs, nw=plan.nwords)
+            t1 = time.perf_counter()
+            if cigar:
+                tb = traceback_torch.TracebackConfig(
+                    bpen, W, cap, banded=banded,
+                    lo_pad=engine_torch.lo_pad(cap) if banded else 0)
+                tables = engine_cuda.cigar_tables_cuda(cfg, cap, *args)
+                fused = engine_cuda.align_cigar_cuda(cfg, tb, *args)
+                torch.cuda.synchronize()
+                plain = engine_torch.cigar_tables(cfg, cap, *args)
+                err = (tables["distance"] - plain["distance"]).abs().max().item()
+                require(err == 0 and torch.equal(tables["finished"], plain["finished"]),
+                        f"{what}: distances or flags differ from the plain version")
+                require(engine_torch.tables_equal(cfg, cap, plain, tables, cone=not banded),
+                        f"{what}: choice nibbles or lo_trace differ where a walk reads")
+                require(torch.equal(fused, fused_plain(tb, plain, args)),
+                        f"{what}: K4 + K3 rows differ from the plain walk")
+                dist, fin = plain["distance"], plain["finished"]
+                key = "wfa_cigar_ring_banded" if banded else "wfa_cigar_ring"
+                del plain, tables
+            else:
+                got = engine_cuda.align_batch_cuda(cfg, *args)
+                torch.cuda.synchronize()
+                want = engine_torch.align_batch_device(cfg, *args)
+                err = (got["distance"] - want["distance"]).abs().max().item()
+                require(err == 0 and torch.equal(got["finished"], want["finished"]),
+                        f"{what}: distances or flags differ from the plain version")
+                dist, fin = want["distance"], want["finished"]
+                key = "wfa_distance_ring_banded" if banded else "wfa_distance_ring"
+                if name == "1kbp" and not banded:
+                    lw_timed = (cfg, args, dist, fin)
+            max_err[key] = max(max_err[key], err)
+            check_s = time.perf_counter() - t1
+            # align_pairs on the same reads: exact scores equal the CPU
+            # engine's (what wfa_tpu returns on an accelerator at such a
+            # working set); every CIGAR replays and, exact, rescores.
+            reset_launches()
+            t1 = time.perf_counter()
+            res = align_pairs(lpats, ltxts, lopts)
+            torch.cuda.synchronize()
+            e2e_ms = (time.perf_counter() - t1) * 1e3
+            lw_launches = {k: v for k, v in engine_cuda.LAUNCHES.items() if v}
+            require(lw_launches.get(key, 0) >= 1
+                    and not lw_launches.get("wfa_distance")
+                    and not lw_launches.get("wfa_cigar"),
+                    f"{what}: align_pairs launched {lw_launches}, expected {key}")
+            on_card = np.array([r.finished_on_accelerator for r in res])
+            if banded:
+                require(all(r.error == d for r, d, f in zip(
+                    res, dist.tolist(), fin.tolist()) if f),
+                        f"{what}: align_pairs differs from K4's launch")
+            else:
+                require([r.error for r in res] == exact_cpu.tolist(),
+                        f"{what}: align_pairs scores differ from the CPU engine's")
+            if cigar:
+                require(all(check_cigar(r.cigar, p, t) for r, p, t in zip(res, lpats, ltxts))
+                        and (banded or all(affine_score(r.cigar, bpen) == r.error
+                                           for r in res)),
+                        f"{what}: a CIGAR does not replay or rescore")
+            lw_lines.append(
+                f"{name} {'banded' if banded else 'exact'}{' CIGAR' if cigar else ''} "
+                f"W={W} C=0 (edges {engine_cuda.ring_bytes(bA, W, 0) / 1e6:.2f} MB "
+                f"a pair): equal to the plain engine ({check_s:.2f}s), distances "
+                f"{int(dist.min())}..{int(dist.max())}, {int(fin.sum())}/{len(pairs)} "
+                f"finished; align_pairs {e2e_ms:.1f} ms, {int(on_card.sum())} on "
+                f"the card, launches {lw_launches}")
+    # What the whole ring in global memory costs: exact K4 on the 1 kbp
+    # pairs at centre 0, and at (580,6,2), A = 581, where a centre of 32
+    # still fits, at 0 and 32; wide10k (A = 5) at 0, 32 and its own centre;
+    # each at 512 and 1024 threads (K4's default: the block size that keeps
+    # more threads on an SM, 1024 at a tie).
+    cfg1k, args1k, dist1k, fin1k = lw_timed
+    c0_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg1k, *args1k))
+    c0_cells, c0_bound = exact_bound(cfg1k, dist1k.cpu(), fin1k.cpu(), args1k, False)
+    cfg581 = dataclasses.replace(cfg1k, penalties=Penalties(580, 6, 2))
+    require(engine_cuda.smem_bytes(581, cfg581.wf_width, False, True, 32,
+                                   args1k[0].shape[1]) <= smem,
+            "large-working-set: a centre of 32 does not fit at A=581")
+
+    def centre_ms(cfg, args, centres):
+        """K4 at each pinned centre and 512 / 1024 threads: {(C, T): ms};
+        every output equal to the first's."""
+        times, first = {}, None
+        for c in centres:
+            for t in (512, 1024):
+                def run(c=c, t=t):
+                    return engine_cuda.align_batch_cuda(cfg, *args, _centre=c, _threads=t)
+                times[c, t] = best_ms(run)
+                out = run()
+                first = first or out
+                require(torch.equal(out["distance"], first["distance"])
+                        and torch.equal(out["finished"], first["finished"]),
+                        f"large-working-set: K4 differs at C={c}, {t} threads")
+        return times
+
+    def centre_line(times):
+        return ", ".join(f"C={c} {t} threads {ms:.3f}" for (c, t), ms in times.items())
+
+    ms1k = centre_ms(cfg1k, args1k, (0,))
+    ms581 = centre_ms(cfg581, args1k, (0, 32))
+    ms10 = centre_ms(cfg10, args10, (0, 32, centre10))
+    out10 = engine_cuda.align_batch_cuda(cfg10, *args10, _centre=0)
+    require(out10["distance"].tolist() == gold10
+            and bool(out10["finished"].all()),
+            "large-working-set: wide10k at centre 0 differs from the goldens")
+    phase("large-working-set", t0,
+          "(600,6,2), A=601, K4 with the whole ring in global memory, exact and "
+          "banded, equal to the plain engine on the card in every output (and "
+          "with CIGARs every nibble a walk reads and the walked rows): "
+          + "; ".join(lw_lines)
+          + f"; exact K4 on the 1 kbp pairs at C=0 {c0_ms:.3f} ms (default "
+          f"{engine_cuda.blocks_per_sm(cfg1k, args1k[0].shape[1], dev)[1]} threads), "
+          f"bound {c0_bound[0]:.4f} ms ({c0_bound[1]}, {c0_cells} cells), "
+          f"{centre_line(ms1k)} ms; at (580,6,2) {centre_line(ms581)} ms; wide10k "
+          f"(A=5, W=6016) {centre_line(ms10)} ms, distances equal the goldens at "
+          f"C=0; [{smi}]")
+
+    # ---- 26. chunked: a tier over several chunks, every chunk in flight ----
     t0 = time.perf_counter()
     pen = Penalties(2, 3, 1)
     tier_stats = []
@@ -2215,7 +2475,7 @@ def main() -> int:
           "reference x32, every CIGAR replays and rescores; "
           + "; ".join(chunked_lines) + f"; launches {chunk_launches}; [{smi}]")
 
-    # ---- 26. cli-band4096: the CLI's -B auto -t 4096 on the HiFi FASTA pairs ----
+    # ---- 27. cli-band4096: the CLI's -B auto -t 4096 on the HiFi FASTA pairs ----
     t0 = time.perf_counter()
     from wfa_tpu_torch import cli
     cli_args = ["-Q", str(DATA / "test_hifi.query.fasta"), "-T",

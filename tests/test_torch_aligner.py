@@ -189,23 +189,31 @@ def test_geometry_banded_never_truncates():
 
 
 def test_geometry_invariants_fuzz():
+    """Every window either fits a shared ring or runs on K4 (banded at its
+    own W, exact up to 16384 diagonals); a third of the cases draw a large
+    working set (x up to 30,000), where K4 takes a centre of 0, the whole
+    ring in global memory, once not one granule of 32 diagonals fits.  Only
+    a block whose part outside the ring (window words, scratch, packed rows)
+    does not fit is refused."""
     rng = np.random.default_rng(42)
+    routes = {"shared": 0, "k4": 0, "k4-centre-0": 0, "refused": 0}
     for _ in range(300):
         pen = Penalties(*(int(v) for v in rng.integers(1, 12, 3)))
+        if rng.random() < 1 / 3:
+            pen = Penalties(int(rng.integers(100, 30_000)), pen.o, pen.e)
         tier = int(rng.choice([64, 128, 1024, 4096, 16384]))
         wf = int(rng.integers(3, 2 * tier + 6))
         banded = bool(rng.random() < 0.4)
         smem = int(rng.choice([48 * 1024, 100 * 1024, H100_SMEM]))
         A = pen.active_working_set
+        nw = tier // 16 + 1
         w = -(-wf // 128) * 128
-        if banded and engine_cuda.smem_bytes(A, w) > smem:
-            # K4 at its own W, unless its packed rows and one centre
-            # granule do not fit.
-            try:
-                engine_cuda.centre_width(A, w, tier // 16 + 1, False, smem)
-            except ValueError:
-                with pytest.raises(ValueError):
+        if w > engine_cuda.max_width(A, smem):
+            k4_w = w if banded else min(w, 16384)
+            if engine_cuda.smem_bytes(A, k4_w, False, True, 0, nw) > smem:
+                with pytest.raises(ValueError, match="K4"):
                     _geom(tier, wf, pen, banded, smem)
+                routes["refused"] += 1
                 continue
         cfg, full, cert = _geom(tier, wf, pen, banded, smem)
         assert cfg.wf_width % 128 == 0
@@ -218,6 +226,17 @@ def test_geometry_invariants_fuzz():
         assert full == (cfg.wf_width >= wf)
         if not full:
             assert cfg.score_limit <= cert
+        if not cfg.ring_global:
+            routes["shared"] += 1
+            continue
+        W = cfg.wf_width
+        centre = engine_cuda.centre_width(A, W, nw, False, smem)
+        assert centre % 32 == 0 and 0 <= centre <= W
+        assert engine_cuda.smem_bytes(A, W, False, True, centre, nw) <= smem
+        granule = engine_cuda.smem_bytes(A, W, False, True, 32, nw) <= smem
+        assert (centre > 0) == granule
+        routes["k4" if centre else "k4-centre-0"] += 1
+    assert min(routes.values()) > 0, routes
 
 
 def test_geometry_cigar_mode():

@@ -1,5 +1,6 @@
 """The port's CLI (``python -m wfa_tpu_torch.cli``) against the golden score
 files, as tests/test_cli.py holds wfa_tpu's CLI."""
+import logging
 import subprocess
 import sys
 from pathlib import Path
@@ -83,6 +84,25 @@ def test_cli_errors_and_unsupported_flags(monkeypatch):
     assert main(["-i", seq, "-n", "1", "-g", "1,2"]) == 1    # bad penalties
     assert main(["-i", seq, "-n", "1"]) == 1                 # auto: no card
     assert main(["-i", seq, "-n", "1", "--backend", "cuda"]) == 1
+
+
+def test_cli_warns_on_a_high_automatic_max_error(caplog):
+    """wfa_tpu/cli.py:148-152: with no -e, the automatic max_error (10% of
+    the first pair's longer read, 101 bases here, times the largest
+    penalty) past 8000 draws a warning; 8000 does not."""
+    seq = str(DATA / "wfa.utest.seq")
+    warned = {}
+    for x in (800, 801):
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="wfa_tpu_torch"):
+            assert main(["-i", seq, "-n", "1", "-g", f"{x},6,2",
+                         "--backend", "torch"]) == 0
+        warned[x] = [r.getMessage() for r in caplog.records
+                     if r.levelno == logging.WARNING]
+    assert warned[800] == []
+    assert warned[801] == [
+        "Automatically generated maximum error is very high; consider "
+        "limiting it with '-e'."]
 
 
 # The -x cases of tests/test_cli.py:53-110, run against both CLIs; the

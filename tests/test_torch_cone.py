@@ -247,22 +247,31 @@ def test_centre_and_shared_memory_arithmetic(workload):
         assert smem <= H100_SMEM < engine_cuda.smem_bytes(
             A, W, cigar, True, centre + 32, nw)
         assert engine_cuda.ring_bytes(A, W, centre) == ring
-    # A centre of all W holds no edges; one granule must fit.
+    # A centre of all W holds no edges; below one granule, none is in
+    # shared memory; the block's part outside the ring must fit.
     assert engine_cuda.centre_width(A, 128, nw, False, H100_SMEM) == 128
+    fixed = engine_cuda.smem_bytes(A, W, False, True, 0, nw)
+    assert engine_cuda.centre_width(
+        A, W, nw, False, engine_cuda.smem_bytes(A, W, False, True, 31, nw)) == 0
+    assert engine_cuda.centre_width(A, W, nw, False, fixed) == 0
     with pytest.raises(ValueError, match="shared memory"):
-        engine_cuda.centre_width(A, W, nw, False,
-                                 engine_cuda.smem_bytes(A, W, False, True, 31, nw))
+        engine_cuda.centre_width(A, W, nw, False, fixed - 1)
 
 
 def test_planner_refuses_a_centre_that_does_not_fit():
-    """The wide tier's decisions are those of the whole-ring K4, but a block
-    too small for the packed rows and one centre granule raises."""
+    """The wide tier's decisions are those of the whole-ring K4; a block
+    too small for one centre granule keeps the whole ring in global memory
+    (centre 0), and one too small for the packed rows and the per-slot
+    window words raises."""
     pen = Penalties(2, 3, 1)
     limit = 2 * 3 + 2 * (16384 + 2) + 2
     plan = _TierPlan(16384, [0], 6001, 8, 1025, limit)
     opts = AlignmentOptions(penalties=pen, max_error=3000)
     cfg, full, _, _ = _tier_geometry_cuda(plan, opts, 3000, -1, H100_SMEM)
     assert (cfg.wf_width, cfg.ring_global, full) == (6016, True, True)
-    small = engine_cuda.smem_bytes(5, 6016, False, True, 0, 1025) + 12 * 5 * 31
+    fixed = engine_cuda.smem_bytes(5, 6016, False, True, 0, 1025)
+    small = fixed + 12 * 5 * 31
+    assert _tier_geometry_cuda(plan, opts, 3000, -1, small)[0] == cfg
+    assert engine_cuda.centre_width(5, 6016, 1025, False, small) == 0
     with pytest.raises(ValueError, match="shared memory"):
-        _tier_geometry_cuda(plan, opts, 3000, -1, small)
+        _tier_geometry_cuda(plan, opts, 3000, -1, fixed - 4)

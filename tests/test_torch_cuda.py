@@ -280,13 +280,16 @@ def test_k3_refuses_what_it_cannot_run(device):
     [(Penalties(2, 3, 1), 128, None, 0), (Penalties(4, 1, 2), 512, None, 0),
      (Penalties(1, 0, 1), 1024, None, 0), (Penalties(70, 6, 2), 512, None, 0),
      (Penalties(2, 3, 1), 512, 64, 0), (Penalties(1, 0, 1), 1024, 128, 512),
-     (Penalties(70, 6, 2), 512, 64, 0), (Penalties(3, 1, 3), 512, 32, 0)],
+     (Penalties(70, 6, 2), 512, 64, 0), (Penalties(3, 1, 3), 512, 32, 0),
+     (Penalties(2, 3, 1), 512, 0, 0), (Penalties(600, 6, 2), 256, None, 0)],
 )
 def test_k4_equals_plain_version(device, pen, width, centre, threads):
     """K4 in distance and CIGAR mode; (70,6,2) at W=512 needs 436 KB of ring,
     more than a block's shared memory.  A pinned centre of 32-128 diagonals
     puts most of each cone in the global edges; (3,1,3) has a step whose cone
-    is narrower than its slot's previous one."""
+    is narrower than its slot's previous one; a centre of 0 (pinned, and
+    the automatic one at (600,6,2)) keeps the whole ring in global
+    memory."""
     rng = np.random.default_rng(3 * width + pen.x + (centre or 0))
     pairs = EDGE_PAIRS + random_pairs(rng, 48, 10, 600)
     args = _tensors(pairs, device, invalid_every=9)
@@ -316,7 +319,7 @@ def test_k4_refuses_a_centre_it_cannot_take(device):
     args = _tensors(EDGE_PAIRS, device)
     cfg = engine_torch.EngineConfig(Penalties(2, 3, 1), 50, 256, -1,
                                     ring_global=True)
-    for centre in (0, 48, 288):   # none, off the granule, wider than W
+    for centre in (-32, 48, 288):   # negative, off the granule, wider than W
         with pytest.raises(ValueError, match="centre"):
             engine_cuda.align_batch_cuda(cfg, *args, _centre=centre)
     with pytest.raises(RuntimeError):   # more threads than K4's block takes
@@ -370,14 +373,32 @@ def test_k4_refuses_a_band(device):
 
 
 @pytest.mark.parametrize(
+    "pen,width,band,cigar",
+    [(Penalties(600, 6, 2), 640, -1, False), (Penalties(600, 6, 2), 640, -1, True),
+     (Penalties(600, 6, 2), 2176, -1, False), (Penalties(2, 3, 1), 6016, -1, False),
+     (Penalties(2, 3, 1), 4096, 25, True)],
+)
+def test_k4_default_threads_keep_the_most_resident(device, pen, width, band, cigar):
+    """K4's default block is min(1024, W) threads unless blocks of 512
+    keep more threads resident on an SM (small blocks at a centre of 0)."""
+    cfg = engine_torch.EngineConfig(pen, 3000, width, band, ring_global=True)
+    wide, narrow = (engine_cuda.blocks_per_sm(cfg, 70, device, cigar=cigar, _threads=t)
+                    for t in (min(1024, width), 512))
+    want = wide if wide[0] * wide[1] >= narrow[0] * narrow[1] else narrow
+    assert engine_cuda.blocks_per_sm(cfg, 70, device, cigar=cigar) == want
+
+
+@pytest.mark.parametrize(
     "pen,width,band,centre",
     [(Penalties(2, 3, 1), 512, 10, None), (Penalties(2, 3, 1), 512, 10, 64),
      (Penalties(1, 0, 1), 256, 10, 32), (Penalties(4, 12, 6), 1024, 25, None),
-     (Penalties(70, 6, 2), 512, 25, None), (Penalties(4, 1, 2), 256, 5, 96)],
+     (Penalties(70, 6, 2), 512, 25, None), (Penalties(4, 1, 2), 256, 5, 96),
+     (Penalties(2, 3, 1), 512, 10, 0), (Penalties(600, 6, 2), 256, 10, None)],
 )
 def test_k4_banded_equals_plain_version(device, pen, width, band, centre):
     """Banded K4 in distance and CIGAR mode; a pinned centre narrower than
-    the window puts the re-centres' reads and writes in the global edges."""
+    the window puts the re-centres' reads and writes in the global edges, a
+    centre of 0 all of them."""
     rng = np.random.default_rng(width + band + pen.x + (centre or 0))
     pairs = EDGE_PAIRS + random_pairs(rng, 40, 10, 700)
     args = _tensors(pairs, device, invalid_every=9)

@@ -32,6 +32,21 @@ lists of ms:
   the extension, on ``seq_10K_n100`` at max_error 3000 (W=6016) in both
   modes and on the ring-wide set (16 x 5 kbp, W=9216), as ``align_pairs``
   plans them;
+- ``burst_k4b``, ``burst_k4bc``: banded K4 (W=4096, band 25, max_steps
+  5000, as ``chip_smoke.py`` phase nanopore-burst-wide runs it) on the 128 x
+  20 kbp burst reads of ``tools/torch_nanopore_recall.py`` in distance and
+  CIGAR-table mode, at the default threads and, as ``..._T``, at T = 512
+  and 1024 (null where the kernel refuses T), and exact K4 on
+  ``seq_10K_n100`` with its centre pinned to 0 and 32 (``wide10k_k4_c0``,
+  ``wide10k_k4_c32``);
+- ``big640_k4``, ``big640c_k4``, ``big2176_k4``, ``big2176x4_k4``: exact K4
+  at a large working set, penalties (600,6,2) (A = 601, a centre of 0: the
+  whole ring in global memory), on random pairs of 150-220 bp (W=640) in
+  distance and CIGAR-table mode and of 900-950 bp (W=2176), as many as
+  ``aligner._distance_call_batch`` / ``_cigar_call_batch`` put in one
+  launch at the default memory budget (x4: at four times it), at the
+  default threads and, as ``..._T``, at T = 512 and 1024 (W=640 takes at
+  most 640);
 - with ``_rows`` on the wrappers, the HiFi times with the rows pinned in
   global memory (``hifi_k1_rows_global``, ``hifi_k2_rows_global``);
 - with ``engine_cuda.blocks_per_sm``, ``blocks_per_sm``: the blocks one SM
@@ -83,7 +98,7 @@ def main() -> int:
     from wfa_tpu_torch.ops.packing import pack_batch
     from wfa_tpu_torch.schedule import build_schedule
     from wfa_tpu_torch.utils.io import read_seq_file
-    from wfa_tpu_torch.utils.synth import ring_wide_pairs
+    from wfa_tpu_torch.utils.synth import random_pairs, ring_wide_pairs
 
     dev = torch.device("cuda", 0)
     data = root / "tests" / "data"
@@ -174,6 +189,13 @@ def main() -> int:
     rw_cfg, _, rw_nw = route(rw_pairs, AlignmentOptions(
         penalties=pen, max_error=4600, backend="cuda", cpu_fallback=False))
     rw_args = tensors(rw_pairs, nw=rw_nw)
+    sys.path.insert(0, str(root / "tools"))
+    import torch_nanopore_recall as recall
+
+    bpats, btxts, _ = recall.long_reads(True)
+    bargs = recall.tensors(bpats, btxts, recall.card_words(bpats, btxts), dev)
+    burst_cfg = dataclasses.replace(recall.banded_config(4096), ring_global=True)
+    burst_ccfg, burst_cap = cigar_cfg(burst_cfg, recall.MAX_STEPS)
 
     K1, K2 = engine_cuda.align_batch_cuda, engine_cuda.cigar_tables_cuda
     runs = {
@@ -189,6 +211,43 @@ def main() -> int:
         "wide10k_k4_cigar": lambda: K2(w10_ccfg, w10_cap, *w10_args),
         "ringwide_k4": lambda: K1(rw_cfg, *rw_args),
     }
+    # Runs a tree may refuse: 1024 threads, a centre of 0.
+    optional = set()
+    for t in ("", 512, 1024):
+        kw = {"_threads": t} if t else {}
+        suffix = f"_{t}" if t else ""
+        runs["burst_k4b" + suffix] = lambda kw=kw: K1(burst_cfg, *bargs, **kw)
+        runs["burst_k4bc" + suffix] = lambda kw=kw: K2(burst_ccfg, burst_cap,
+                                                       *bargs, **kw)
+    for c in (0, 32):
+        runs[f"wide10k_k4_c{c}"] = lambda c=c: K1(w10_cfg, *w10_args, _centre=c)
+        optional.add(f"wide10k_k4_c{c}")
+    # Large working sets (a tree without a centre of 0 plans none of them).
+    big_pen = Penalties(600, 6, 2)
+    big_rng = np.random.default_rng(601)
+    big_cfgs = []
+    for name, lo, hi, cigar, budget in (
+        ("big640", 150, 220, False, 1), ("big640c", 150, 220, True, 1),
+        ("big2176", 900, 950, False, 1), ("big2176x4", 900, 950, False, 4),
+    ):
+        big_opts = AlignmentOptions(
+            penalties=big_pen, max_error=3000, compute_cigar=cigar, backend="cuda",
+            memory_budget_bytes=budget * AlignmentOptions().memory_budget_bytes)
+        pool = random_pairs(big_rng, 1024, lo, hi, 0.1, 0, 0)
+        try:
+            cfg, cap, nw = route(pool, big_opts)
+        except ValueError:
+            continue
+        ring = engine_cuda.ring_bytes(big_pen.active_working_set, cfg.wf_width, 0)
+        n = (aligner._cigar_call_batch(big_opts, cap, cfg.wf_width, ring) if cigar
+             else aligner._distance_call_batch(big_opts, ring))
+        big_args = tensors(pool[:n], nw=nw)
+        big_cfgs.append((f"{name}_k4", cfg, nw, cigar))
+        for t in ("", 512, 1024):
+            kw = {"_threads": t} if t else {}
+            runs[f"{name}_k4" + (f"_{t}" if t else "")] = (
+                (lambda cfg=cfg, cap=cap, a=big_args, kw=kw: K2(cfg, cap, *a, **kw))
+                if cigar else (lambda cfg=cfg, a=big_args, kw=kw: K1(cfg, *a, **kw)))
     for t in (512, 1024):
         runs[f"exact1k_k1_{t}"] = lambda t=t: K1(k1k_cfg, *k1k_args, _threads=t)
         runs[f"exact1k_k2_{t}"] = lambda t=t: K2(k1k_ccfg, k1k_cap, *k1k_args,
@@ -233,10 +292,12 @@ def main() -> int:
                     times[name].append(launch_ms(fn, cold=name.endswith("_cold")))
                 else:
                     times[name].append(cuda_ms(fn))
-            except RuntimeError:
-                if not name.endswith("_1024"):
+            except (RuntimeError, ValueError):
+                if not (name.endswith("_1024") or name in optional):
                     raise
-                times[name] = None     # an earlier K1/K2 takes at most 512
+                # An earlier kernel takes at most 512 threads, or no centre
+                # of 0.
+                times[name] = None
                 continue
             out = fn()
             key = name.split("_")[0]
@@ -267,6 +328,9 @@ def main() -> int:
             ("w3840_k1", cut_cfg, w10_nw, False),
             ("wide10k_k4", w10_cfg, w10_nw, False),
             ("wide10k_k4_cigar", w10_ccfg, w10_nw, True),
+            ("burst_k4b", burst_cfg, bargs[0].shape[1], False),
+            ("burst_k4bc", burst_ccfg, bargs[0].shape[1], True),
+            *big_cfgs, *((n + "_512", c, w, g, 512) for n, c, w, g in big_cfgs),
         ):
             occupancy[name] = engine_cuda.blocks_per_sm(cfg, nw, dev, cigar=cigar,
                                                         _threads=threads[0] if threads else 0)

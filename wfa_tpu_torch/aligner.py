@@ -20,8 +20,9 @@ without a CUDA device both raise, and only ``torch`` runs on the CPU.
 With ``data_parallel`` (the default) and more than one device in
 ``parallel.mesh.data_mesh()``, the ``cuda`` route splits each launch's batch
 over those devices (``parallel/mesh.py``).  With ``probe_order`` it orders
-the pairs within long-read tiers by distances measured with K1 at a narrow
-band (``_probe_distances``) in place of the host's divergence estimate.
+the pairs within long-read tiers by distances measured at a narrow band
+(``_probe_distances``: K1, or banded K4 at large working sets) in place of
+the host's divergence estimate.
 """
 from __future__ import annotations
 
@@ -159,8 +160,11 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
     ``o + e*(W/2+1)``, so a distance below that bound is optimal; the loop
     stops at the bound.  Banded, it takes K4 at its own W, never truncated
     or certified, where ``wfa_tpu`` runs its XLA engine
-    (``wfa_tpu/aligner.py:637-646``).  The one window refused is one where
-    K4's packed rows and smallest centre do not fit (``centre_width``).
+    (``wfa_tpu/aligner.py:637-646``).  Where a large working set leaves no
+    room for a centre of 32 diagonals, K4 keeps the whole ring in global
+    memory (``centre_width`` 0); the one window refused is one whose block
+    cannot hold even the per-slot window words, the scratch and the packed
+    rows (``centre_width`` raises, near A = 29,000 on an H100).
 
     In CIGAR mode (``wfa_tpu/aligner.py:204-224``) the choice table holds
     scores below ``score_cap = unfinished_score + 1``, capped at
@@ -183,7 +187,7 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
         full_window = w >= plan.wf_width
         score_limit = plan.score_limit
     if ring_global:
-        # Raises when K4's packed rows and smallest centre do not fit.
+        # Raises where the block's part outside the ring does not fit.
         engine_cuda.centre_width(A, w, plan.nwords, cigar, smem_bytes)
     cert_bound = pen.o + pen.e * (w // 2 + 1)
     score_cap = 0
@@ -431,24 +435,38 @@ _PROBE_WIDTH = 128
 _PROBE_UNFINISHED = float(1 << 30)
 
 
+def _probe_config(pen, max_error: int, band: int,
+                  smem: int | None) -> EngineConfig:
+    """The probe's config: banded at W=128 (band ``band``, or 25 in exact
+    mode), on K1 where a block of ``smem`` bytes holds the shared ring, else
+    on banded K4 (``ring_global``: from A = 151 on an H100, and with no
+    shared centre from A = 593).  ``smem`` None: the plain engine, which
+    ignores the flag."""
+    ring = smem is not None and _PROBE_WIDTH > engine_cuda.max_width(
+        pen.active_working_set, smem)
+    return EngineConfig(
+        penalties=pen, max_steps=max_error, wf_width=_PROBE_WIDTH,
+        band=band if band > 0 else AUTO_BAND_INTERVAL, ring_global=ring,
+    )
+
+
 def _probe_distances(patterns, texts, run_idx, pen, max_error: int, band: int,
                      device: torch.device) -> np.ndarray:
     """``probe_order``'s first pass (``wfa_tpu/aligner.py:284-323``): the
-    distances K1 measures in one banded launch at W=128 (band ``band``, or
-    25 in exact mode), as float64 ordering hints; pairs it leaves unfinished
-    (band overflow, non-ACGT) get ``1 << 30`` and so tile together last.
-    On a CPU ``device`` the plain engine measures them."""
+    distances one banded launch at W=128 measures (``_probe_config``: K1,
+    or banded K4 at large working sets), as float64 ordering hints; pairs
+    it leaves unfinished (band overflow, non-ACGT) get ``1 << 30`` and so
+    tile together last.  On a CPU ``device`` the plain engine measures
+    them."""
     pats = [patterns[i] for i in run_idx]
     txts = [texts[i] for i in run_idx]
     lmax = max(max(len(p), len(t)) for p, t in zip(pats, txts))
     pat_w, p_len, p_ok = pack_batch(pats, lmax // 16 + 2)
     txt_w, t_len, t_ok = pack_batch(txts, lmax // 16 + 2)
-    cfg = EngineConfig(
-        penalties=pen, max_steps=max_error, wf_width=_PROBE_WIDTH,
-        band=band if band > 0 else AUTO_BAND_INTERVAL,
-    )
+    smem = engine_cuda.smem_optin(device) if device.type == "cuda" else None
     out = engine_cuda.align_batch_cuda(
-        cfg, *batch_to_tensors(pat_w, p_len, txt_w, t_len, p_ok & t_ok, device)
+        _probe_config(pen, max_error, band, smem),
+        *batch_to_tensors(pat_w, p_len, txt_w, t_len, p_ok & t_ok, device)
     )
     dist = out["distance"].cpu().numpy().astype(np.float64)
     dist[~out["finished"].cpu().numpy()] = _PROBE_UNFINISHED
@@ -547,9 +565,9 @@ def align_pairs(
     band = opts.resolved_band() if opts.banded else -1
 
     def _device_pass(run_idx: list[int], err: int) -> None:
-        # Cost-ordered tiling for long reads: distances measured by K1 at a
-        # narrow band (probe_order), else the host's divergence estimate
-        # (utils/presort.py).
+        # Cost-ordered tiling for long reads: distances measured on the
+        # card at a narrow band (probe_order), else the host's divergence
+        # estimate (utils/presort.py).
         hints = None
         dev_lens = lens[run_idx]
         if dev_lens.size and int(dev_lens.max()) >= MIN_PRESORT_TIER:

@@ -158,6 +158,11 @@ def main(argv: list[str] | None = None) -> int:
             max(len(batch.texts[0]), len(batch.patterns[0])) * 0.1
         ) * max(pen.x, pen.o, pen.e)
         max_error = max(max_error, 20)
+        if max_error > 8000:
+            LOG.warning(
+                "Automatically generated maximum error is very high; consider"
+                " limiting it with '-e'."
+            )
         LOG.info("No maximum error provided by the user, using %d", max_error)
     elif max_error is not None and max_error <= 0:
         LOG.error("Maximum error supported by the kernel must be > 0.")

@@ -57,14 +57,22 @@
 // past score o + e (C / 2 + 1), so most cells never touch global memory
 // (wide10k: about a tenth).  K4 also copies the block's two packed rows
 // into shared memory once, so the extension's loads are shared loads, and
-// runs 1024 threads a block (shared memory allows one block an SM).
+// runs up to 1024 threads a block (prepare).
+// C may be 0 (large working sets, where not one granule of 32 diagonals
+// fits beside the per-slot window words and the rows): ring_s then has no
+// rows, every lane's jc fails the test against C and goes to the slab, and
+// exact mode's shared fast path is never taken.
 // Banded K4 keeps window lanes 0 .. C - 1 in shared memory instead (cl = 0):
 // a banded window grows from lane 0 until it reaches W, so its early scores
 // never touch the edges; once at full width every score computes every lane
-// wherever the centre lies.  Every banded read and write of the ring, the
-// re-centre's argmin included, goes through ring_ld / ring_st.  It runs 512
-// threads a block, as K1/K2 banded, and neither the cone nor exact mode's I
-// reset applies (i_reset is NULL).
+// wherever the centre lies.  A banded parent is read at a shifted lane
+// (lo_n - win_lo[slot] + j), so each score works out once, for the whole
+// block, the highest child lane jlim whose cell reads and writes only lanes
+// below C; a warp whose lanes all lie at or below jlim (a warp-uniform test
+// a pass) reads and writes ring_s directly with 32-bit indices, the other
+// warps go through ring_ld / ring_st, which test each lane against C.  The
+// re-centre's argmin reads lanes below C from ring_s the same way.  Neither
+// the cone nor exact mode's I reset applies to a band (i_reset is NULL).
 //
 // K2's choice rows: each thread ORs the nibble of each score it computes
 // into the current row word of the diagonal.  The row words live in shared
@@ -120,12 +128,12 @@ namespace {
 
 using wfa::kNull;
 constexpr int kBig = 1 << 20;         // window bound standing in for a missing parent
-constexpr int kMaxThreadsBanded = 512;  // K1, K2 and K4 with a band
-constexpr int kMaxThreadsExact = 1024;  // K1, K2 and K4 exact
+constexpr int kMaxThreadsBanded = 512;  // K1 and K2 with a band
+constexpr int kMaxThreadsWide = 1024;   // K1, K2 exact; K4 exact and banded
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 constexpr int kScratchInts = 66;      // argmin partials (2 per warp, <= 32 warps) + 2
 constexpr int kSchedCols = 7;         // score, out, mx, moe, ide, radius, previous radius
-constexpr int kCentreGranule = 32;    // K4's centre is a multiple of this
+constexpr int kCentreGranule = 32;    // K4's centre: 0 or a multiple of this
 
 // Shared-memory bytes for one block; wfa_tpu_torch.ops.engine_cuda.smem_bytes
 // holds the same formula.  K2 adds one choice row word per diagonal; K4
@@ -265,16 +273,26 @@ __device__ __forceinline__ void argmin_merge(int& v, int& j, int ov, int oj) {
   }
 }
 
-// Blocks of the most threads an SM must hold by registers (the second
-// argument of __launch_bounds__).  Exact K1/K2 with staged rows: two of 1024
-// threads, at most 32 registers a thread, as their narrow windows want many
-// resident blocks.  K4 (banded: 512 threads) and K1/K2 with the rows in
-// global memory fill shared memory, so an SM holds one block anyway.  Banded blocks take the registers
-// they need (two 512-thread blocks an SM at HiFi): capping them at 40 or 32
-// spilled or lengthened each block's chain more than the third and fourth
-// resident block gained (PERF.md).
+// The most threads a block (the first argument of __launch_bounds__): 512
+// for banded K1/K2, 1024 for the rest, banded K4 included: its wide windows
+// fill shared memory, so an SM holds one block, and 1024 threads halve a
+// score's dependent passes (burst reads at W=4096: 7.14 against 7.83 ms at
+// 512, PERF.md; 56 and 62 registers, within the bound's 64).  Blocks of the
+// most threads an SM must hold by registers (the second argument).  Exact
+// K1/K2 with staged rows: two of 1024 threads, at most 32 registers a
+// thread, as their narrow windows want many resident blocks.  K1/K2 with
+// the rows in global memory and K4 (but at a centre of 0) fill shared
+// memory, so an SM holds one block anyway.  Banded blocks take the registers they need (two 512-thread
+// blocks an SM at HiFi): capping them at 40 or 32 spilled or lengthened each
+// block's chain more than the third and fourth resident block gained
+// (PERF.md).
+template <bool kBanded, bool kRingGlobal>
+constexpr int max_threads() {
+  return kBanded && !kRingGlobal ? kMaxThreadsBanded : kMaxThreadsWide;
+}
+
 template <bool kBanded, bool kCigar, bool kRingGlobal, bool kSeqShared>
-__global__ void __launch_bounds__(kBanded ? kMaxThreadsBanded : kMaxThreadsExact,
+__global__ void __launch_bounds__(max_threads<kBanded, kRingGlobal>(),
                                   !kBanded && !kRingGlobal && kSeqShared ? 2 : 1)
 wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
            int nw, const int* __restrict__ plen_arr,
@@ -438,6 +456,10 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
 
     int lo_n = -W2;
     int ext_n = W - 1;
+    // Banded: the parents' shifts and extents (-1 for a missing parent), and
+    // for K4 the highest lane of the shared pass (-1: none).
+    int sh_x = 0, sh_oe = 0, sh_e = 0, ext_x = -1, ext_oe = -1, ext_e = -1;
+    int jlim = W - 1;
     int j0 = 0;       // lanes this score computes: j0 .. j1
     int j1 = W - 1;
     bool wide_row = false;  // K2 exact: the row's cone is wider than this one
@@ -465,11 +487,17 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
         const int extx = win_ext[sx];
         int best = INT_MAX;
         int best_j = INT_MAX;
-        for (int j = tid; j < extx; j += nthreads) {
-          const int m = ring_ld(sx, j);
+        auto consider = [&](int j, int m) {
           if (m >= 0) {
             argmin_merge(best, best_j, max(plen - (m - (lox + j)), tlen - m), j);
           }
+        };
+        // Lanes below C from ring_s directly (K4's shared pass), the rest
+        // through ring_ld; the merge is order-free.
+        const int cs = kRingGlobal ? min(extx, C) : extx;
+        for (int j = tid; j < cs; j += nthreads) consider(j, ring_s[sx * C + j]);
+        if (kRingGlobal) {
+          for (int j = cs + tid; j < extx; j += nthreads) consider(j, ring_ld(sx, j));
         }
         for (int off = 16; off > 0; off >>= 1) {
           const int ov = __shfl_down_sync(0xFFFFFFFFu, best, off);
@@ -492,6 +520,21 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
         hi_n = lo_n + W - 1;
       }
       ext_n = hi_n - lo_n;
+      // Each parent's shift: child lane j reads its lane sh_* + j (+-1).
+      sh_x = sx < 0 ? 0 : lo_n - win_lo[sx];
+      sh_oe = soe < 0 ? 0 : lo_n - win_lo[soe];
+      sh_e = se < 0 ? 0 : lo_n - win_lo[se];
+      ext_x = sx < 0 ? -1 : win_ext[sx];
+      ext_oe = soe < 0 ? -1 : win_ext[soe];
+      ext_e = se < 0 ? -1 : win_ext[se];
+      // K4: the highest child lane whose reads (parent lanes up to its
+      // shift + 1, or the parent's extent) and writes lie below C.
+      if (kRingGlobal) {
+        jlim = C - 1;
+        if (ext_x >= C) jlim = min(jlim, C - 1 - sh_x);
+        if (ext_oe >= C) jlim = min(jlim, C - 2 - sh_oe);
+        if (ext_e >= C) jlim = min(jlim, C - 2 - sh_e);
+      }
     } else {
       const int r = min(row[5], W2);
       const int r_prev = min(row[6], W2);
@@ -514,20 +557,39 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     for (int jb = j0; jb + (kBanded ? tid & ~31 : tid) <= j1; jb += nthreads) {
       const int j = kBanded ? min(jb + tid, j1) : jb + tid;
       bool live = jb + tid <= j1;
+      // Banded K4: this warp's lanes all take the shared pass (uniform).
+      const bool shared = !kRingGlobal || (kBanded && min(jb + (tid | 31), j1) <= jlim);
       int i_open, i_ext, d_open, d_ext, x_off, k;
       if constexpr (kBanded) {
-        if (live && j > ext_n) reset_cell(oslot, j);
-        live = live && j <= ext_n;
         // Child lane j is diagonal lo_n + j; each parent is read at its
-        // own window base (rows: M slot, A + I slot, 2A + D slot).
-        const int r_oe = soe < 0 ? 0 : lo_n - win_lo[soe] + j;
-        const int r_e = se < 0 ? 0 : lo_n - win_lo[se] + j;
-        const int r_x = sx < 0 ? 0 : lo_n - win_lo[sx] + j;
-        i_open = soe < 0 ? kNull : win_read(soe, r_oe - 1, win_ext[soe]);
-        d_open = soe < 0 ? kNull : win_read(soe, r_oe + 1, win_ext[soe]);
-        i_ext = se < 0 ? kNull : win_read(A + se, r_e - 1, win_ext[se]);
-        d_ext = se < 0 ? kNull : win_read(2 * A + se, r_e + 1, win_ext[se]);
-        x_off = sx < 0 ? kNull : win_read(sx, r_x, win_ext[sx]);
+        // own window base (rows: M slot, A + I slot, 2A + D slot); a
+        // missing parent has extent -1, so every read of it is NULL.
+        const int r_oe = sh_oe + j;
+        const int r_e = sh_e + j;
+        const int r_x = sh_x + j;
+        if (shared) {
+          if (live && j > ext_n) {
+            ring_s[oslot * C + j] = kNull;
+            ring_s[(A + oslot) * C + j] = i_reset;
+            ring_s[(2 * A + oslot) * C + j] = kNull;
+          }
+          auto rd = [&](int row, int rel, int ext) -> int {
+            return (rel < 0 || rel > ext) ? kNull : ring_s[row * C + rel];
+          };
+          i_open = rd(soe, r_oe - 1, ext_oe);
+          d_open = rd(soe, r_oe + 1, ext_oe);
+          i_ext = rd(A + se, r_e - 1, ext_e);
+          d_ext = rd(2 * A + se, r_e + 1, ext_e);
+          x_off = rd(sx, r_x, ext_x);
+        } else {
+          if (live && j > ext_n) reset_cell(oslot, j);
+          i_open = win_read(soe, r_oe - 1, ext_oe);
+          d_open = win_read(soe, r_oe + 1, ext_oe);
+          i_ext = win_read(A + se, r_e - 1, ext_e);
+          d_ext = win_read(2 * A + se, r_e + 1, ext_e);
+          x_off = win_read(sx, r_x, ext_x);
+        }
+        live = live && j <= ext_n;
         k = lo_n + j;
       } else if (!kRingGlobal || (j > cl && j + 1 < cl + C)) {
         // The cell and its parents in shared memory (for K4 never at the
@@ -565,7 +627,8 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       }
       if (!live) continue;
       if constexpr (!kBanded) m_new = extend<kSeqShared>(m_pb >> 2, k, P, T, nw, plen, tlen);
-      if (!kRingGlobal || static_cast<unsigned>(j - cl) < static_cast<unsigned>(C)) {
+      if (kBanded ? shared
+                  : !kRingGlobal || static_cast<unsigned>(j - cl) < static_cast<unsigned>(C)) {
         int* c = ring_s + (j - cl);
         c[oslot * C] = m_new;
         c[(A + oslot) * C] = i_new;
@@ -628,7 +691,8 @@ struct Variant {
   static size_t smem(int A, int W, int centre, int nw) {
     return smem_bytes(A, W, kCigar, kRingGlobal, centre, nw, kSeqShared);
   }
-  static constexpr int kMost = kBanded ? kMaxThreadsBanded : kMaxThreadsExact;
+  static constexpr int kMost = max_threads<kBanded, kRingGlobal>();
+  static constexpr bool kRing = kRingGlobal;
 };
 
 // Calls fn(Variant<...>{}) with the instantiation for these arguments: K4
@@ -649,9 +713,15 @@ int with_variant(int band, int centre, int rows_shared, Fn&& fn) {
                      : fn(Variant<false, kCigar, false, false>{});
 }
 
-// Sets the kernel's shared-memory limit and resolves `threads` (0: 512, or
-// 1024 in exact mode where a block's shared memory leaves no room for a
-// second one on an SM; at most W) on the current device.
+// Sets the kernel's shared-memory limit and resolves `threads` on the
+// current device (0: see below; at most W).  K1/K2 take 512, or 1024 in
+// exact mode where a block's shared memory leaves no room for a second one
+// on an SM.  K4 takes min(1024, W) unless 512-thread blocks keep more
+// threads resident on an SM: a small block (a centre of 0) may fit two of
+// 512 but one of 1024.  At a tie it takes the wider block, whose score
+// needs fewer dependent passes (A=601, C=0: 1 kbp pairs 1.68 against 2.12
+// ms at 512, 273 of them 3.87 against 4.12; with CIGARs at W=640, one
+// block of 640 against two of 512, 0.75 against 0.64; PERF.md).
 template <class V>
 int prepare(int A, int W, int nw, int centre, int& threads, size_t& smem) {
   if (W <= 0 || W % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -668,7 +738,16 @@ int prepare(int A, int W, int nw, int centre, int& threads, size_t& smem) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, V::kernel(),
                                                         kMaxThreadsBanded, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (V::kMost > kMaxThreadsBanded && blocks <= 1) threads = V::kMost;
+    if (V::kRing) {
+      const int wide = min(V::kMost, W);
+      int wide_blocks = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&wide_blocks, V::kernel(),
+                                                          wide, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (wide_blocks * wide >= blocks * kMaxThreadsBanded) threads = V::kMost;
+    } else if (V::kMost > kMaxThreadsBanded && blocks <= 1) {
+      threads = V::kMost;
+    }
   }
   if (threads > W) threads = W;
   return 0;
@@ -685,8 +764,7 @@ int dispatch(const void* pat, const void* txt, int nw, const void* plen,
   return with_variant<kCigar>(band, centre, rows_shared, [&](auto v) -> int {
     using V = decltype(v);
     if (B == 0) return 0;
-    if (centre >= 0 && (centre < kCentreGranule || centre > W ||
-                        centre % kCentreGranule != 0 ||
+    if (centre >= 0 && (centre > W || centre % kCentreGranule != 0 ||
                         (centre < W && edge == nullptr))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -711,15 +789,14 @@ int dispatch(const void* pat, const void* txt, int nw, const void* plen,
 extern "C" {
 
 // K1 (centre < 0) or K4 (centre >= 0: the ring's centre in shared memory,
-// edge: [B, 3A, W - centre] int32 scratch, null when centre == W) on
-// `stream` over B alignments of `threads` (0: see launch) threads;
-// rows_shared != 0
-// stages the packed rows in shared memory (K4 requires it); returns a
-// cudaError_t (0 = ok).
+// 0 for none; edge: [B, 3A, W - centre] int32 scratch, null when
+// centre == W) on `stream` over B alignments of `threads` (0: see prepare)
+// threads; rows_shared != 0 stages the packed rows in shared memory (K4
+// requires it); returns a cudaError_t (0 = ok).
 // pat/txt: [B, nw] packed u32 rows; plen/tlen: [B] int32; valid: [B] bool;
 // sched: [num_steps, 7] int32 (score, out, mx, moe, ide slots, cone radius,
 // the out slot's previous cone radius); dist: [B] int32 out; fin: [B] bool
-// out.  W must be a multiple of 32, centre a multiple of 32 up to W.
+// out.  W must be a multiple of 32, centre 0 or a multiple of 32 up to W.
 int wfa_distance_launch(const void* pat, const void* txt, int nw,
                         const void* plen, const void* tlen, const void* valid,
                         const void* sched, int num_steps, int unfinished_score,

@@ -9,8 +9,9 @@ and ``align_cigar_cuda`` launches K2 then K3 and returns the fused rows of
 ``traceback_torch.align_cigar_fused``.  With ``cfg.ring_global`` the first
 two and ``align_cigar_cuda`` launch K4 in place of K1 and K2, exact or
 banded: the same outputs, with ``centre_width`` lanes of the ring in shared
-memory (exact: the diagonals around W/2; banded: the window's first lanes)
-and its edges in a global scratch buffer.  K1 and K2 stage the
+memory (exact: the diagonals around W/2; banded: the window's first lanes;
+none where a large working set leaves no room for 32) and its edges in a
+global scratch buffer.  K1 and K2 stage the
 two packed rows in shared memory where they fit beside the ring
 (``rows_fit``, host arithmetic before the launch) and read them from global
 memory where they do not.  K3 walks each alignment with one warp, two walks
@@ -79,20 +80,20 @@ def centre_width(active_working_set: int, width: int, nwords: int,
     """K4's centre: the most lanes, a multiple of ``CENTRE_GRANULE`` and at
     most W, whose [3A, C] ring fits ``smem`` beside the rest of the block's
     shared memory (``smem_bytes``); exact K4 holds the diagonals around W/2
-    there, banded K4 the window's lanes 0 .. C - 1.  Raises ValueError when
-    not even one granule fits."""
+    there, banded K4 the window's lanes 0 .. C - 1.  0 where not even one
+    granule fits: the whole ring is then in global memory.  Raises
+    ValueError only where the rest of the block (the per-slot window words,
+    the scratch, K2's row words and the packed rows) does not fit."""
     A = active_working_set
     fixed = smem_bytes(A, width, cigar, True, 0, nwords)
-    c = min(width, max(smem - fixed, 0) // (12 * A)
-            // CENTRE_GRANULE * CENTRE_GRANULE)
-    if c < CENTRE_GRANULE:
+    if fixed > smem:
         raise ValueError(
-            f"K4 at W={width}, A={A}, cigar={cigar}: the packed rows of "
-            f"{nwords} words and a centre of {CENTRE_GRANULE} diagonals need "
-            f"{fixed + 12 * A * CENTRE_GRANULE} bytes of shared memory; a "
-            f"block has {smem}"
+            f"K4 at W={width}, A={A}, cigar={cigar}: the window words, "
+            f"scratch and packed rows of {nwords} words need {fixed} bytes "
+            f"of shared memory; a block has {smem}"
         )
-    return c
+    return min(width, (smem - fixed) // (12 * A)
+               // CENTRE_GRANULE * CENTRE_GRANULE)
 
 
 def ring_bytes(active_working_set: int, width: int, centre: int) -> int:
@@ -170,10 +171,9 @@ def _placement(cfg: EngineConfig, nw: int, cigar: bool, centre: int | None,
         if centre is None:
             return centre_width(A, W, nw, cigar, have), True
         need = smem_bytes(A, W, cigar, True, centre, nw)
-        if centre % CENTRE_GRANULE or not CENTRE_GRANULE <= centre <= W \
-                or need > have:
+        if centre % CENTRE_GRANULE or not 0 <= centre <= W or need > have:
             raise ValueError(
-                f"K4 centre {centre} at W={W}: a multiple of "
+                f"K4 centre {centre} at W={W}: 0 or a multiple of "
                 f"{CENTRE_GRANULE} up to W whose block ({need} bytes) fits "
                 f"the {have} bytes a block may use"
             )
@@ -226,7 +226,8 @@ def blocks_per_sm(cfg: EngineConfig, nwords: int, device: torch.device, *,
 
 def _edges(cfg: EngineConfig, B: int, centre: int, device) -> torch.Tensor | None:
     """K4's [B, 3A, W - centre] edge buffer (each block resets its own
-    slab), or None for the shared-memory ring and for a centre of all W."""
+    slab; a centre of 0: the whole ring), or None for the shared-memory ring
+    and for a centre of all W."""
     if centre < 0 or centre == cfg.wf_width:
         return None
     A = cfg.penalties.active_working_set
@@ -244,10 +245,12 @@ def align_batch_cuda(
     *, _centre: int | None = None, _threads: int = 0, _rows: str | None = None,
 ) -> dict[str, torch.Tensor]:
     """K1 (K4 with ``cfg.ring_global``): distances and finished flags of
-    one batch.  ``_centre`` pins K4's centre, ``_threads`` the threads a
-    block (0: 512, and 1024 in exact mode where a block's shared memory
-    leaves room for no second block on an SM, as for K4) and ``_rows`` K1's
-    row placement ('shared' or 'global'); tests and timings use them."""
+    one batch.  ``_centre`` pins K4's centre (0: the whole ring in global
+    memory), ``_threads`` the threads a block (0: for K1 512, and 1024 in
+    exact mode where a block's shared memory leaves room for no second block
+    on an SM; for K4 up to 1024, or 512 where two blocks of 512 keep more
+    threads on an SM) and ``_rows`` K1's row placement ('shared' or
+    'global'); tests and timings use them."""
     if pat.device.type == "cpu":
         return engine_torch.align_batch_device(cfg, pat, txt, plen, tlen, valid)
     B, nw, centre, shared = _check_batch(cfg, pat, txt, plen, tlen, valid, False,
@@ -305,7 +308,8 @@ def cigar_tables_cuda(
     about as long as a tenth of K2) buys nothing.  Rows past an alignment's
     distance and exact words outside the cone hold whatever the memory held;
     compare tables only where a walk can read (``engine_torch.tables_equal``
-    with ``cone=True`` in exact mode)."""
+    with ``cone=True`` in exact mode).  The private knobs are
+    ``align_batch_cuda``'s."""
     if pat.device.type == "cpu":
         return engine_torch.cigar_tables(
             cfg, score_cap, pat, txt, plen, tlen, valid

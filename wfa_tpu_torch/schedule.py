@@ -86,6 +86,10 @@ def build_schedule(
     # Each processed iteration advances the score by at least 1, there are
     # < max_steps MDI steps, and at most max(x, o+e) scores lie between two.
     score_cap = max_steps * (max(x, o + e) + 1) + ring + 2
+    if score_limit is not None:
+        # Nothing above the limit is read; at large working sets and
+        # max_steps the full bitmaps cost seconds of host time.
+        score_cap = min(score_cap, score_limit + 2)
     m_exist, i_exist = _existence(x, o, e, score_cap)
 
     scores: list[int] = []
