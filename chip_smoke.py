@@ -54,10 +54,14 @@ also at centres of 0, 32, W/2 and W; the
 burst reads at W=2048 (K1) and 4096 (banded K4) in both modes, their recall,
 kernel times (banded K4 at 512 and 1024 threads) against the plain engine and align_pairs(band_width=4096)
 end to end, every CIGAR replayed; large working sets at (600,6,2), A = 601,
-where K4 keeps the whole ring in global memory: exact and banded K4 in both
-modes against the plain engine on 100 bp, 1 kbp and (exact CIGAR) 10 kbp
-pairs, align_pairs on them against the CPU engine's exact scores, and K4 at
-centres of 0 and 32 (A = 581) and on wide10k; probe_order at (149,6,2) (the
+where K4 keeps its compact ring (M's far ring in global memory, the rest in
+shared memory): exact and banded K4 in both modes against the plain engine
+on 100 bp, 1 kbp and (exact CIGAR) 10 kbp pairs, with each set's centre,
+global bytes a pair and pairs a launch, align_pairs on them against the CPU
+engine's exact scores, the compact ring at (580,6,2), (3,200,1) and the
+probe's A = 151 at its own centre and at 0 and 32, K4's time, set-up alone,
+plain time and bounds on the 1 kbp pairs, and K4 at pinned centres
+(A = 601, 581) and on wide10k at a centre of 0; probe_order at (149,6,2) (the
 probe on K1) and (150,6,2), A = 151 (on banded K4); the chunk loop of align_pairs (every chunk
 of a tier packed and launched before the first is decoded) on seq_10K_n100
 x4 and HiFi x32 with CIGARs, against a depth of one, with the profiler's
@@ -162,7 +166,7 @@ def device_busy(fn, name: str) -> tuple[float, float, int, int]:
 
     for _ in range(3):
         before = {k: v for k, v in engine_cuda.LAUNCHES.items()
-                  if k.startswith("wfa_")}
+                  if k.startswith("wfa_") and not k.endswith("_compact")}
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -309,19 +313,19 @@ def main() -> int:
         for name, so in libs.items()
     )
     t_nvcc = time.perf_counter() - t0
-    # Registers of each wfa_kernel<banded, cigar, ring_global, rows shared>;
-    # no spills.
+    # Registers of each wfa_kernel<banded, cigar, ring_global, rows shared,
+    # compact>; no spills.
     regs, kernel = {}, None
     log = libs["wfa_distance"].with_suffix(".log").read_text().splitlines()
     for ln in log:
-        if m := re.search(r"wfa_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E", ln):
+        if m := re.search(r"wfa_kernelILb(\d)ELb(\d)ELb(\d)ELb(\d)ELb(\d)E", ln):
             kernel = "<" + ", ".join(("false", "true")[int(c)] for c in m.groups()) + ">"
         elif kernel and (m := re.search(r"Used (\d+) registers", ln)):
             regs[kernel] = int(m.group(1))
     spills = [ln for ln in log if "spill" in ln and not re.search(
         r"\b0 bytes spill stores, 0 bytes spill loads", ln)]
     require(not spills, "wfa_distance.cu spills registers: " + "; ".join(spills))
-    require(len(regs) == 12, f"expected 12 wfa_kernel instantiations, got {regs}")
+    require(len(regs) == 16, f"expected 16 wfa_kernel instantiations, got {regs}")
     # K3's two instantiations <banded>: no spill, no stack
     # (a walker member that left registers would show as a stack frame).
     k3_regs, kernel = {}, None
@@ -565,6 +569,7 @@ def main() -> int:
     max_err = {"wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
                "wfa_distance_ring": 0, "wfa_cigar_ring": 0,
                "wfa_distance_ring_banded": 0, "wfa_cigar_ring_banded": 0, "ring_bw": 0,
+               "wfa_distance_compact": 0, "wfa_cigar_compact": 0,
                "vpu_ops": 0, "gather_chain": 0, "scalar_sync": 0, "k_wide": 0}
     n_cases = n_lanes = 0
     prep_s = k1_s = plain_s = 0.0
@@ -1464,7 +1469,7 @@ def main() -> int:
     events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     k1 = [e for e in kernels
-          if re.search(r"wfa_kernel<(true|false), false, false, (true|false)>",
+          if re.search(r"wfa_kernel<(true|false), false, false, (true|false), false>",
                        e["name"])]
     require(len(k1) > 0, f"the --profile trace names no K1 kernel "
             f"({len(kernels)} kernel events)")
@@ -1483,7 +1488,8 @@ def main() -> int:
         from torch.profiler import ProfilerActivity, profile
 
         def launched():
-            return sum(v for k, v in engine_cuda.LAUNCHES.items() if k.startswith("wfa_"))
+            return sum(v for k, v in engine_cuda.LAUNCHES.items()
+                       if k.startswith("wfa_") and not k.endswith("_compact"))
 
         for calls in range(1, 4):
             before = launched()
@@ -1726,12 +1732,14 @@ def main() -> int:
     require([r.error for r in probe_res[True]] == ref["distance"] * HIFI_REPS,
             "probe-order: distances differ from the stored reference")
     # Large working sets: at W=128 a shared ring holds A = 150, so the probe
-    # runs on K1 at (149,6,2) and on banded K4 from (150,6,2), A = 151, on;
-    # the 50 HiFi pairs, with and without the probe.
+    # runs on K1 at (149,6,2) and on banded K4 (its compact ring) from
+    # (150,6,2), A = 151, on; the 50 HiFi pairs, with and without the probe.
     hp, ht = pats[:50], txts[:50]
     hargs = tensors(list(zip(hp, ht)))
     big_probe = []
-    for x, kernel in ((149, "wfa_distance"), (150, "wfa_distance_ring_banded")):
+    for x, kernels in ((149, ("wfa_distance",)),
+                       (150, ("wfa_distance_ring_banded", "wfa_distance_compact"))):
+        kernel = kernels[0]
         xpen = Penalties(x, 6, 2)
         xcfg = aligner._probe_config(xpen, 3000, 25, smem)
         require(xcfg.ring_global == (x >= 150),
@@ -1748,14 +1756,15 @@ def main() -> int:
                 if not k.startswith("rows_")}
         require(res[True] == res[False],
                 f"probe-order at ({x},6,2): probe_order=True changes the results")
-        require(diff[kernel] >= 1 and all(v == 0 for k, v in diff.items() if k != kernel),
-                f"probe-order at ({x},6,2): the probe launched {diff}, expected {kernel}")
+        require(all(diff[k] == diff[kernel] >= 1 for k in kernels)
+                and all(v == 0 for k, v in diff.items() if k not in kernels),
+                f"probe-order at ({x},6,2): the probe launched {diff}, expected {kernels}")
         xms = cuda_ms(
             lambda: engine_cuda.align_batch_cuda(xcfg, *hargs), 5)[0]
         big_probe.append(
             f"({x},6,2) A={x + 1}: the probe on {kernel} ({diff[kernel]} launch(es) "
             f"over the device passes; W=128, "
-            + (f"C={engine_cuda.centre_width(x + 1, 128, hargs[0].shape[1], False, smem)}"
+            + (f"C={engine_cuda.centre_width(Penalties(x, 6, 2), 128, hargs[0].shape[1], False, smem)}"
                if xcfg.ring_global else "shared ring") + f") {xms:.3f} ms on 50 pairs, "
             f"{sum(r.finished_on_accelerator for r in res[True])}/50 on the card, "
             "results equal with and without it")
@@ -1971,6 +1980,8 @@ def main() -> int:
     # (name, penalties, W, band, pinned centre or None, max_steps, pairs,
     # modes): W past a shared ring's width (or a pinned centre narrower than
     # W), and pairs whose windows pass the centre and re-centre at full width.
+    # (70,6,2) is K4's compact ring, whose own centre holds all of W=512: it
+    # is pinned to 256 (its own centre is one of the other pins).
     br_cases = [
         ("x2o3e1-W4096", Penalties(2, 3, 1), 4096, 25, None, 2600,
          ring_wide_pairs(seed=11, n=8, length=3000), (False,)),
@@ -1978,7 +1989,7 @@ def main() -> int:
          ring_wide_pairs(seed=11, n=8, length=3000), (True,)),
         ("x4o12e6-W1024", Penalties(4, 12, 6), 1024, 25, None, 4200,
          ring_wide_pairs(seed=12, n=8, length=2400), (False, True)),
-        ("x70o6e2-W512", Penalties(70, 6, 2), 512, 25, None, 2000,
+        ("x70o6e2-W512-C256", Penalties(70, 6, 2), 512, 25, 256, 2000,
          random_pairs(np.random.default_rng(70), 8, 900, 1000, 0.25, 0, 0),
          (False, True)),
         ("x1o0e1-b10-C32", Penalties(1, 0, 1), 256, 10, 32, 600,
@@ -2000,12 +2011,12 @@ def main() -> int:
             require(centre is not None or w > engine_cuda.max_width(A, smem, cigar),
                     f"{what}: W={w} fits a shared ring")
             c = centre if centre is not None else engine_cuda.centre_width(
-                A, w, nw, cigar, smem)
+                pen, w, nw, cigar, smem)
             # The case's centre, then the other centres a block holds: 0, 32,
             # W/2 and W.
             pins = [centre] + [
                 p for p in (0, 32, w // 2, w)
-                if p != c and engine_cuda.smem_bytes(A, w, cigar, True, p, nw) <= smem]
+                if p != c and engine_cuda.smem_bytes(pen, w, cigar, True, p, nw) <= smem]
             t1 = time.perf_counter()
             if cigar:
                 cfg, tb = cigar_configs(pen, steps, w, band, ring_global=True)
@@ -2231,13 +2242,13 @@ def main() -> int:
           f"({k4bc_launches['wfa_cigar_ring_banded']} banded K4 + K3 launches), "
           f"every CIGAR replays; [{smi}]")
 
-    # ---- 25. large-working-set: (600,6,2), A = 601, K4 with no shared centre ----
+    # ---- 25. large-working-set: A > 64, K4's compact ring ----
     t0 = time.perf_counter()
     bpen = Penalties(600, 6, 2)
     bA = bpen.active_working_set
     lrng = np.random.default_rng(601)
     # (name, pairs, max_error, modes: (banded, cigar)); a shared ring holds no
-    # window at A = 601 and not one granule of centre fits beside the rest.
+    # window at A = 601, so K4 runs every one, in its compact ring.
     lw_sets = [
         ("100bp", random_pairs(lrng, 32, 90, 110, 0.1, 0, 0), 1000,
          ((False, False), (False, True), (True, False), (True, True))),
@@ -2247,7 +2258,47 @@ def main() -> int:
          ((False, True),)),
     ]
     lw_lines = []
-    lw_timed = None
+    lw_timed = {}
+    # The compact ring's launches on the main path: every align_pairs call
+    # of the sets above, each counted from 0.
+    lw_main = {"wfa_distance_compact": 0, "wfa_cigar_compact": 0}
+
+    def compact_check(what, cfg, cap, args, centres=(None,)):
+        """K4 (K4 + K3 with CIGARs) at each of ``centres`` (None: the
+        automatic one) against the plain engine on the card; fails on any
+        difference.  Returns the plain version's (distance, finished)."""
+        kind = "cigar" if cfg.compute_cigar else "distance"
+        key = f"wfa_{kind}_ring_banded" if cfg.banded else f"wfa_{kind}_ring"
+        if cfg.compute_cigar:
+            tb = traceback_torch.TracebackConfig(
+                cfg.penalties, cfg.wf_width, cap, banded=cfg.banded,
+                lo_pad=engine_torch.lo_pad(cap) if cfg.banded else 0)
+            plain = engine_torch.cigar_tables(cfg, cap, *args)
+            want_rows = fused_plain(tb, plain, args)
+        else:
+            plain = engine_torch.align_batch_device(cfg, *args)
+        for centre in centres:
+            at = f"{what} at C={centre}"
+            if cfg.compute_cigar:
+                got = engine_cuda.cigar_tables_cuda(cfg, cap, *args, _centre=centre)
+                fused = engine_cuda.align_cigar_cuda(cfg, tb, *args, _centre=centre)
+                torch.cuda.synchronize()
+                require(engine_torch.tables_equal(cfg, cap, plain, got,
+                                                  cone=not cfg.banded),
+                        f"{at}: choice nibbles or lo_trace differ where a walk reads")
+                require(torch.equal(fused, want_rows),
+                        f"{at}: K4 + K3 rows differ from the plain walk")
+            else:
+                got = engine_cuda.align_batch_cuda(cfg, *args, _centre=centre)
+                torch.cuda.synchronize()
+            err = (got["distance"] - plain["distance"]).abs().max().item()
+            require(err == 0 and torch.equal(got["finished"], plain["finished"]),
+                    f"{at}: distances or flags differ from the plain version")
+            for k in (key, f"wfa_{kind}_compact"):
+                max_err[k] = max(max_err[k], err)
+            del got
+        return plain["distance"], plain["finished"]
+
     for name, pairs, merr, modes in lw_sets:
         lpats = [p for p, _ in pairs]
         ltxts = [t for _, t in pairs]
@@ -2264,42 +2315,29 @@ def main() -> int:
             (plan,) = aligner._plan_tiers(lens, lopts, merr)
             cfg, full, _, cap = aligner._tier_geometry_cuda(plan, lopts, merr, band, smem)
             W = cfg.wf_width
-            require(cfg.ring_global and full
-                    and engine_cuda.centre_width(bA, W, plan.nwords, cigar, smem) == 0,
-                    f"{what}: expected K4 with a centre of 0, got {cfg}")
+            C = engine_cuda.centre_width(bpen, W, plan.nwords, cigar, smem)
+            require(cfg.ring_global and full and C > 0
+                    and engine_cuda._compact_args(cfg) == (9, 3, 1),
+                    f"{what}: expected K4's compact ring with a centre, got {cfg}, C={C}")
+            # Global bytes a pair and pairs a launch at the default budget,
+            # against the whole ring's (12 A W at a centre of 0).
+            ring = engine_cuda.ring_bytes(bpen, W, C)
+            whole = 12 * bA * W
+            if cigar:
+                per_launch, whole_launch = (aligner._cigar_call_batch(lopts, cap, W, r)
+                                            for r in (ring, whole))
+            else:
+                per_launch, whole_launch = (aligner._distance_call_batch(lopts, r)
+                                            for r in (ring, whole))
             args = tensors(pairs, nw=plan.nwords)
             t1 = time.perf_counter()
-            if cigar:
-                tb = traceback_torch.TracebackConfig(
-                    bpen, W, cap, banded=banded,
-                    lo_pad=engine_torch.lo_pad(cap) if banded else 0)
-                tables = engine_cuda.cigar_tables_cuda(cfg, cap, *args)
-                fused = engine_cuda.align_cigar_cuda(cfg, tb, *args)
-                torch.cuda.synchronize()
-                plain = engine_torch.cigar_tables(cfg, cap, *args)
-                err = (tables["distance"] - plain["distance"]).abs().max().item()
-                require(err == 0 and torch.equal(tables["finished"], plain["finished"]),
-                        f"{what}: distances or flags differ from the plain version")
-                require(engine_torch.tables_equal(cfg, cap, plain, tables, cone=not banded),
-                        f"{what}: choice nibbles or lo_trace differ where a walk reads")
-                require(torch.equal(fused, fused_plain(tb, plain, args)),
-                        f"{what}: K4 + K3 rows differ from the plain walk")
-                dist, fin = plain["distance"], plain["finished"]
-                key = "wfa_cigar_ring_banded" if banded else "wfa_cigar_ring"
-                del plain, tables
-            else:
-                got = engine_cuda.align_batch_cuda(cfg, *args)
-                torch.cuda.synchronize()
-                want = engine_torch.align_batch_device(cfg, *args)
-                err = (got["distance"] - want["distance"]).abs().max().item()
-                require(err == 0 and torch.equal(got["finished"], want["finished"]),
-                        f"{what}: distances or flags differ from the plain version")
-                dist, fin = want["distance"], want["finished"]
-                key = "wfa_distance_ring_banded" if banded else "wfa_distance_ring"
-                if name == "1kbp" and not banded:
-                    lw_timed = (cfg, args, dist, fin)
-            max_err[key] = max(max_err[key], err)
+            dist, fin = compact_check(what, cfg, cap, args)
             check_s = time.perf_counter() - t1
+            if name == "1kbp" and not banded:
+                lw_timed["cigar" if cigar else "distance"] = (cfg, cap, args, dist, fin)
+            key = (f"wfa_{'cigar' if cigar else 'distance'}_ring"
+                   + ("_banded" if banded else ""))
+            ckey = f"wfa_{'cigar' if cigar else 'distance'}_compact"
             # align_pairs on the same reads: exact scores equal the CPU
             # engine's (what wfa_tpu returns on an accelerator at such a
             # working set); every CIGAR replays and, exact, rescores.
@@ -2307,12 +2345,19 @@ def main() -> int:
             t1 = time.perf_counter()
             res = align_pairs(lpats, ltxts, lopts)
             torch.cuda.synchronize()
-            e2e_ms = (time.perf_counter() - t1) * 1e3
+            e2e_ms = [(time.perf_counter() - t1) * 1e3]
             lw_launches = {k: v for k, v in engine_cuda.LAUNCHES.items() if v}
+            for _ in range(3):      # warm calls
+                t1 = time.perf_counter()
+                align_pairs(lpats, ltxts, lopts)
+                torch.cuda.synchronize()
+                e2e_ms.append((time.perf_counter() - t1) * 1e3)
             require(lw_launches.get(key, 0) >= 1
+                    and lw_launches.get(ckey, 0) == lw_launches[key]
                     and not lw_launches.get("wfa_distance")
                     and not lw_launches.get("wfa_cigar"),
-                    f"{what}: align_pairs launched {lw_launches}, expected {key}")
+                    f"{what}: align_pairs launched {lw_launches}, expected {key}, {ckey}")
+            lw_main[ckey] += lw_launches[ckey]
             on_card = np.array([r.finished_on_accelerator for r in res])
             if banded:
                 require(all(r.error == d for r, d, f in zip(
@@ -2328,23 +2373,64 @@ def main() -> int:
                         f"{what}: a CIGAR does not replay or rescore")
             lw_lines.append(
                 f"{name} {'banded' if banded else 'exact'}{' CIGAR' if cigar else ''} "
-                f"W={W} C=0 (edges {engine_cuda.ring_bytes(bA, W, 0) / 1e6:.2f} MB "
-                f"a pair): equal to the plain engine ({check_s:.2f}s), distances "
-                f"{int(dist.min())}..{int(dist.max())}, {int(fin.sum())}/{len(pairs)} "
-                f"finished; align_pairs {e2e_ms:.1f} ms, {int(on_card.sum())} on "
-                f"the card, launches {lw_launches}")
-    # What the whole ring in global memory costs: exact K4 on the 1 kbp
-    # pairs at centre 0, and at (580,6,2), A = 581, where a centre of 32
-    # still fits, at 0 and 32; wide10k (A = 5) at 0, 32 and its own centre;
-    # each at 512 and 1024 threads (K4's default: the block size that keeps
-    # more threads on an SM, 1024 at a tie).
-    cfg1k, args1k, dist1k, fin1k = lw_timed
-    c0_ms = best_ms(lambda: engine_cuda.align_batch_cuda(cfg1k, *args1k))
-    c0_cells, c0_bound = exact_bound(cfg1k, dist1k.cpu(), fin1k.cpu(), args1k, False)
+                f"W={W} C={C}: global {ring / 1e6:.2f} MB a pair (whole ring "
+                f"{whole / 1e6:.2f}), {per_launch} pairs a launch (whole ring "
+                f"{whole_launch}); equal to the plain engine ({check_s:.2f}s), "
+                f"distances {int(dist.min())}..{int(dist.max())}, "
+                f"{int(fin.sum())}/{len(pairs)} finished; align_pairs "
+                f"{e2e_ms[0]:.3f} ms cold, warm {', '.join(f'{t:.3f}' for t in e2e_ms[1:])}, "
+                f"{int(on_card.sum())} on the card, launches {lw_launches}")
+
+    # The other working sets: (580,6,2); (3,200,1), whose far M parent is
+    # o+e; the probe at A = 151 (banded W=128, band 25) -- on the 1 kbp pairs,
+    # at the automatic centre and pinned to 0 and 32.
+    args1k = lw_timed["distance"][2]
+    more = []
+    for pen, W, band in ((Penalties(580, 6, 2), 2176, -1), (Penalties(580, 6, 2), 256, 25),
+                         (Penalties(3, 200, 1), 2176, -1), (Penalties(3, 200, 1), 256, 25),
+                         (Penalties(150, 6, 2), 128, 25)):
+        for cigar in ((False,) if W == 128 else (False, True)):
+            cfg, tb = cigar_configs(pen, 400, W, band, ring_global=True)
+            if not cigar:
+                cfg = dataclasses.replace(cfg, compute_cigar=False, score_limit=None)
+            auto = engine_cuda.centre_width(pen, W, args1k[0].shape[1], cigar, smem)
+            compact_check(f"large-working-set ({pen.x},{pen.o},{pen.e}) W={W} band={band}",
+                          cfg, tb.score_cap, args1k, (None, 0, 32))
+        more.append(f"({pen.x},{pen.o},{pen.e}) W={W}{' banded' if band > 0 else ''} C={auto}")
+
+    # Times on the 1 kbp pairs at A = 601: K4 (distance, CIGAR tables) at
+    # the automatic centre, its plain version, its bounds (bytes or int32
+    # ops; and the chain: one 1024-thread barrier a score, half phase
+    # calibrate's max-and-branch, times the longest pair's scores), the
+    # set-up alone (no score past 0: the compact ring resets nothing), and
+    # pinned centres and threads; (580,6,2) at centres 0, 32 and its own;
+    # wide10k (A = 5, the whole ring) at 0, 32 and its own centre.
+    cfg1k, _, args1k, dist1k, fin1k = lw_timed["distance"]
+    cfgc, capc, argsc, distc, finc = lw_timed["cigar"]
+    c1k = engine_cuda.centre_width(bpen, cfg1k.wf_width, args1k[0].shape[1], False, smem)
+    cc1k = engine_cuda.centre_width(bpen, cfgc.wf_width, argsc[0].shape[1], True, smem)
+    # Kernel times: the mean of 5 launches back to back after a warm-up, as
+    # the kernels line times the others.
+    timed = {
+        "k4": lambda: engine_cuda.align_batch_cuda(cfg1k, *args1k),
+        "k4c": lambda: engine_cuda.cigar_tables_cuda(cfgc, capc, *argsc),
+        "setup": lambda: engine_cuda.align_batch_cuda(
+            dataclasses.replace(cfg1k, max_steps=2), *args1k),
+    }
+    for fn in timed.values():
+        fn()
+    lw_ms, lwc_ms, setup_ms = (cuda_ms(fn, 5)[0] for fn in timed.values())
+    lw_plain_ms = cuda_ms(lambda: engine_torch.align_batch_device(cfg1k, *args1k), 1)[0]
+    lwc_plain_ms = cuda_ms(lambda: engine_torch.cigar_tables(cfgc, capc, *argsc), 1)[0]
+    lw_cells, lw_bound = exact_bound(cfg1k, dist1k.cpu(), fin1k.cpu(), args1k, False)
+    lwc_cells, lwc_bound = exact_bound(cfgc, distc.cpu(), finc.cpu(), argsc, True)
+    scores1k = build_schedule(bpen, cfg1k.max_steps, cfg1k.score_limit).score
+    longest1k = max(int((scores1k <= d).sum()) if f else len(scores1k)
+                    for d, f in zip(dist1k.tolist(), fin1k.tolist()))
+    chain1k_ms = longest1k * rates["sync1024"][0]["ns"] / 2e6
     cfg581 = dataclasses.replace(cfg1k, penalties=Penalties(580, 6, 2))
-    require(engine_cuda.smem_bytes(581, cfg581.wf_width, False, True, 32,
-                                   args1k[0].shape[1]) <= smem,
-            "large-working-set: a centre of 32 does not fit at A=581")
+    c581 = engine_cuda.centre_width(cfg581.penalties, cfg581.wf_width,
+                                    args1k[0].shape[1], False, smem)
 
     def centre_ms(cfg, args, centres):
         """K4 at each pinned centre and 512 / 1024 threads: {(C, T): ms};
@@ -2365,24 +2451,30 @@ def main() -> int:
     def centre_line(times):
         return ", ".join(f"C={c} {t} threads {ms:.3f}" for (c, t), ms in times.items())
 
-    ms1k = centre_ms(cfg1k, args1k, (0,))
-    ms581 = centre_ms(cfg581, args1k, (0, 32))
+    ms1k = centre_ms(cfg1k, args1k, (0, 32, c1k))
+    ms581 = centre_ms(cfg581, args1k, (0, 32, c581))
     ms10 = centre_ms(cfg10, args10, (0, 32, centre10))
     out10 = engine_cuda.align_batch_cuda(cfg10, *args10, _centre=0)
     require(out10["distance"].tolist() == gold10
             and bool(out10["finished"].all()),
             "large-working-set: wide10k at centre 0 differs from the goldens")
     phase("large-working-set", t0,
-          "(600,6,2), A=601, K4 with the whole ring in global memory, exact and "
+          "(600,6,2), A=601, K4's compact ring (M's far ring in global memory, "
+          "9 near + 3 + 3 gap + 2 staging rows in shared memory), exact and "
           "banded, equal to the plain engine on the card in every output (and "
           "with CIGARs every nibble a walk reads and the walked rows): "
           + "; ".join(lw_lines)
-          + f"; exact K4 on the 1 kbp pairs at C=0 {c0_ms:.3f} ms (default "
-          f"{engine_cuda.blocks_per_sm(cfg1k, args1k[0].shape[1], dev)[1]} threads), "
-          f"bound {c0_bound[0]:.4f} ms ({c0_bound[1]}, {c0_cells} cells), "
-          f"{centre_line(ms1k)} ms; at (580,6,2) {centre_line(ms581)} ms; wide10k "
-          f"(A=5, W=6016) {centre_line(ms10)} ms, distances equal the goldens at "
-          f"C=0; [{smi}]")
+          + "; equal too at " + ", ".join(more) + " (each also at C=0 and 32, "
+          f"the 1 kbp pairs); exact K4 on the 1 kbp pairs C={c1k} {lw_ms:.3f} ms "
+          f"(default {engine_cuda.blocks_per_sm(cfg1k, args1k[0].shape[1], dev)[1]} "
+          f"threads), set-up alone {setup_ms:.3f} ms, plain {lw_plain_ms:.3f} ms, "
+          f"bound {lw_bound[0]:.4f} ms ({lw_bound[1]}, {lw_cells} cells), chain "
+          f"{chain1k_ms:.4f} ms ({longest1k} scores); CIGAR tables C={cc1k} "
+          f"{lwc_ms:.3f} ms, plain {lwc_plain_ms:.3f} ms, bound {lwc_bound[0]:.4f} "
+          f"ms ({lwc_bound[1]}); {centre_line(ms1k)} ms; at (580,6,2) "
+          f"{centre_line(ms581)} ms; wide10k (A=5, W=6016, the whole ring) "
+          f"{centre_line(ms10)} ms, distances equal the goldens at C=0; "
+          f"compact launches on the main path {lw_main}; [{smi}]")
 
     # ---- 26. chunked: a tier over several chunks, every chunk in flight ----
     t0 = time.perf_counter()
@@ -2568,6 +2660,24 @@ def main() -> int:
             "max_abs_err": max_err["wfa_cigar_ring_banded"],
             "ms": k4bc_ms, "plain_ms": k4bc_plain_ms,
             "bound_ms": k4bc_bound[0], "bound_by": k4bc_bound[1], "library_ms": None,
+        },
+        {
+            "name": "wfa_distance_compact", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/ops/engine_pallas.py:804",
+            "launches": lw_main["wfa_distance_compact"],
+            "max_abs_err": max_err["wfa_distance_compact"],
+            "ms": lw_ms, "plain_ms": lw_plain_ms,
+            "bound_ms": lw_bound[0], "bound_by": lw_bound[1], "library_ms": None,
+        },
+        {
+            "name": "wfa_cigar_compact", "route": "cuda",
+            "source": "wfa_tpu_torch/ops/csrc/wfa_distance.cu",
+            "replaces": "wfa_tpu/ops/engine_pallas.py:804",
+            "launches": lw_main["wfa_cigar_compact"],
+            "max_abs_err": max_err["wfa_cigar_compact"],
+            "ms": lwc_ms, "plain_ms": lwc_plain_ms,
+            "bound_ms": lwc_bound[0], "bound_by": lwc_bound[1], "library_ms": None,
         },
         {
             "name": "ring_bw", "route": "cuda",

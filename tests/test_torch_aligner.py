@@ -185,16 +185,18 @@ def test_geometry_banded_never_truncates():
     cfg, full, _ = _geom(1024, 512, pen=Penalties(70, 6, 2), banded=True)
     assert (cfg.wf_width, cfg.ring_global, cfg.band, cfg.score_limit, full) == (
         512, True, 25, None, True)
-    assert engine_cuda.centre_width(71, 512, 65, False, H100_SMEM) == 256
+    # A = 71: K4's compact ring holds the whole window in shared memory.
+    assert engine_cuda.centre_width(Penalties(70, 6, 2), 512, 65, False,
+                                    H100_SMEM) == 512
 
 
 def test_geometry_invariants_fuzz():
     """Every window either fits a shared ring or runs on K4 (banded at its
     own W, exact up to 16384 diagonals); a third of the cases draw a large
-    working set (x up to 30,000), where K4 takes a centre of 0, the whole
-    ring in global memory, once not one granule of 32 diagonals fits.  Only
-    a block whose part outside the ring (window words, scratch, packed rows)
-    does not fit is refused."""
+    working set (x up to 30,000), where K4 keeps its compact ring, with a
+    centre of 0 once not one granule of 32 diagonals fits.  Only a block
+    whose part outside the ring (window words, scratch, packed rows) does
+    not fit is refused."""
     rng = np.random.default_rng(42)
     routes = {"shared": 0, "k4": 0, "k4-centre-0": 0, "refused": 0}
     for _ in range(300):
@@ -210,14 +212,14 @@ def test_geometry_invariants_fuzz():
         w = -(-wf // 128) * 128
         if w > engine_cuda.max_width(A, smem):
             k4_w = w if banded else min(w, 16384)
-            if engine_cuda.smem_bytes(A, k4_w, False, True, 0, nw) > smem:
+            if engine_cuda.smem_bytes(pen, k4_w, False, True, 0, nw) > smem:
                 with pytest.raises(ValueError, match="K4"):
                     _geom(tier, wf, pen, banded, smem)
                 routes["refused"] += 1
                 continue
         cfg, full, cert = _geom(tier, wf, pen, banded, smem)
         assert cfg.wf_width % 128 == 0
-        assert engine_cuda.smem_bytes(A, cfg.wf_width,
+        assert engine_cuda.smem_bytes(pen, cfg.wf_width,
                                       ring_global=cfg.ring_global) <= smem
         assert cfg.ring_global == (w > engine_cuda.max_width(A, smem))
         assert cfg.wf_width == (min(w, 16384) if cfg.ring_global and not banded
@@ -230,10 +232,10 @@ def test_geometry_invariants_fuzz():
             routes["shared"] += 1
             continue
         W = cfg.wf_width
-        centre = engine_cuda.centre_width(A, W, nw, False, smem)
+        centre = engine_cuda.centre_width(pen, W, nw, False, smem)
         assert centre % 32 == 0 and 0 <= centre <= W
-        assert engine_cuda.smem_bytes(A, W, False, True, centre, nw) <= smem
-        granule = engine_cuda.smem_bytes(A, W, False, True, 32, nw) <= smem
+        assert engine_cuda.smem_bytes(pen, W, False, True, centre, nw) <= smem
+        granule = engine_cuda.smem_bytes(pen, W, False, True, 32, nw) <= smem
         assert (centre > 0) == granule
         routes["k4" if centre else "k4-centre-0"] += 1
     assert min(routes.values()) > 0, routes

@@ -228,8 +228,8 @@ def test_centre_and_shared_memory_arithmetic(workload):
     """K4's centre C (a multiple of 32), its block's shared memory and its
     edge ring per alignment, worked by hand: 4 bytes x (3A C + 2A window
     words + 66 scratch + W row words with CIGARs + 2 (nw + 1) sequence
-    words)."""
-    A, W, nw, want = {
+    words); above A = 64 the compact ring's rows in place of 3A."""
+    ring, W, nw, want = {
         # seq_10K_n100 at -e 3000: tier 16384, nw 1025.  Distance:
         # (232448 - 4 (10 + 66 + 2052)) / 60 = 3732.2 -> 3712; CIGAR adds
         # 6016 row words: (232448 - 32576) / 60 = 3331.2 -> 3328.
@@ -237,25 +237,28 @@ def test_centre_and_shared_memory_arithmetic(workload):
                                     True: (3328, 232_256, 161_280)}),
         # ring-wide, 5 kbp: tier 8192, nw 513; (232448 - 4416) / 60 = 3800.5.
         "ring-wide": (5, 9216, 513, {False: (3776, 230_976, 326_400)}),
-        # (70,6,2): A = 71, 852 bytes a centre diagonal.
-        "70-6-2": (71, 512, 64, {False: (256, 219_464, 218_112),
-                                 True: (256, 221_512, 218_112)}),
+        # (70,6,2): A = 71, the compact ring: 9 near, 3 + 3 gap and 2
+        # staging rows, 68 bytes a centre diagonal, so the whole window fits
+        # (4 (2A + 66 + 130) = 1,352 bytes besides); the far ring 71 x 512.
+        "70-6-2": (Penalties(70, 6, 2), 512, 64,
+                   {False: (512, 36_168, 145_408), True: (512, 38_216, 145_408)}),
     }[workload]
-    for cigar, (centre, smem, ring) in want.items():
-        assert engine_cuda.centre_width(A, W, nw, cigar, H100_SMEM) == centre
-        assert engine_cuda.smem_bytes(A, W, cigar, True, centre, nw) == smem
-        assert smem <= H100_SMEM < engine_cuda.smem_bytes(
-            A, W, cigar, True, centre + 32, nw)
-        assert engine_cuda.ring_bytes(A, W, centre) == ring
+    for cigar, (centre, smem, ring_b) in want.items():
+        assert engine_cuda.centre_width(ring, W, nw, cigar, H100_SMEM) == centre
+        assert engine_cuda.smem_bytes(ring, W, cigar, True, centre, nw) == smem
+        assert smem <= H100_SMEM
+        assert centre == W or H100_SMEM < engine_cuda.smem_bytes(
+            ring, W, cigar, True, centre + 32, nw)
+        assert engine_cuda.ring_bytes(ring, W, centre) == ring_b
     # A centre of all W holds no edges; below one granule, none is in
     # shared memory; the block's part outside the ring must fit.
-    assert engine_cuda.centre_width(A, 128, nw, False, H100_SMEM) == 128
-    fixed = engine_cuda.smem_bytes(A, W, False, True, 0, nw)
+    assert engine_cuda.centre_width(ring, 128, nw, False, H100_SMEM) == 128
+    fixed = engine_cuda.smem_bytes(ring, W, False, True, 0, nw)
     assert engine_cuda.centre_width(
-        A, W, nw, False, engine_cuda.smem_bytes(A, W, False, True, 31, nw)) == 0
-    assert engine_cuda.centre_width(A, W, nw, False, fixed) == 0
+        ring, W, nw, False, engine_cuda.smem_bytes(ring, W, False, True, 31, nw)) == 0
+    assert engine_cuda.centre_width(ring, W, nw, False, fixed) == 0
     with pytest.raises(ValueError, match="shared memory"):
-        engine_cuda.centre_width(A, W, nw, False, fixed - 1)
+        engine_cuda.centre_width(ring, W, nw, False, fixed - 1)
 
 
 def test_planner_refuses_a_centre_that_does_not_fit():

@@ -363,13 +363,50 @@ def test_k4_refuses_a_band(device):
         *(t.data_ptr() for t in args[:2]), nw,
         *(t.data_ptr() for t in args[2:]), sched.data_ptr(), num_steps,
         unfinished, 5, 128, 25, dist.data_ptr(), fin.data_ptr(),
-        edges.data_ptr(), 64, 1, 0, B, device.index,
+        edges.data_ptr(), 64, 0, 0, 0, 1, 0, B, device.index,
         torch.cuda.current_stream(device).cuda_stream,
     )
     assert rc == 0
     want = engine_torch.align_batch_device(cfg, *args)
     assert torch.equal(dist, want["distance"])
     assert torch.equal(fin, want["finished"])
+
+
+@pytest.mark.parametrize(
+    "pen,width,band",
+    [(Penalties(600, 6, 2), 1024, -1), (Penalties(600, 6, 2), 256, 10),
+     (Penalties(580, 6, 2), 512, -1), (Penalties(580, 6, 2), 256, 25),
+     (Penalties(70, 6, 2), 512, -1), (Penalties(70, 6, 2), 512, 25),
+     (Penalties(3, 200, 1), 512, -1), (Penalties(3, 200, 1), 256, 10),
+     (Penalties(100, 90, 10), 256, -1), (Penalties(100, 0, 100), 256, 10)],
+)
+@pytest.mark.parametrize("centre", [None, 0, 32])
+def test_compact_ring_equals_plain_version(device, pen, width, band, centre):
+    """K4's compact ring (A > 64) in distance and CIGAR mode, exact and
+    banded, at its automatic centre and pinned to 0 and 32: the far parent
+    is M[d-x] (600,6,2 ...), M[d-o-e] (3,200,1) or both (x = o+e), and at
+    (100,0,100) every step's far parent is the score before."""
+    rng = np.random.default_rng(width + band + pen.x + (centre or 1))
+    pairs = EDGE_PAIRS + random_pairs(rng, 40, 10, 500)
+    args = _tensors(pairs, device, invalid_every=9)
+    cfg = engine_torch.EngineConfig(pen, 160, width, band, ring_global=True)
+    before = dict(engine_cuda.LAUNCHES)
+    got = engine_cuda.align_batch_cuda(cfg, *args, _centre=centre)
+    ccfg, tb = _cigar_configs(pen, 160, width, band, ring_global=True)
+    tables = engine_cuda.cigar_tables_cuda(ccfg, tb.score_cap, *args, _centre=centre)
+    fused = engine_cuda.align_cigar_cuda(ccfg, tb, *args, _centre=centre)
+    torch.cuda.synchronize()
+    after = engine_cuda.LAUNCHES
+    assert after["wfa_distance_compact"] == before["wfa_distance_compact"] + 1
+    assert after["wfa_cigar_compact"] == before["wfa_cigar_compact"] + 2
+    want = engine_torch.align_batch_device(cfg, *args)
+    assert torch.equal(got["finished"], want["finished"])
+    assert torch.equal(got["distance"], want["distance"])
+    plain = engine_torch.cigar_tables(ccfg, tb.score_cap, *args)
+    assert torch.equal(tables["distance"], plain["distance"])
+    assert torch.equal(tables["finished"], plain["finished"])
+    assert engine_torch.tables_equal(ccfg, tb.score_cap, plain, tables, cone=band < 0)
+    assert torch.equal(fused, traceback_torch.align_cigar_fused(ccfg, tb, *args))
 
 
 @pytest.mark.parametrize(

@@ -1,10 +1,10 @@
 """Large working sets on the CUDA route, and banded K4's shared pass.
 
 A = max(o+e, x) + 1 is the ring's slots.  At (600,6,2), A = 601, so a shared
-ring holds no window (``engine_cuda.max_width`` is 0) and not even one granule
-of 32 diagonals of K4's centre fits beside the rest of a block's 232,448
-bytes: K4 then keeps the whole ring in global memory (``centre_width`` 0),
-where ``wfa_tpu`` returns results from its XLA engine.  Here, on the CPU: the
+ring holds no window (``engine_cuda.max_width`` is 0): K4 runs it, in its
+compact ring (M's far ring in global memory, the rest in shared memory,
+``tests/test_torch_compact.py``), where ``wfa_tpu`` returns results from its
+XLA engine.  Here, on the CPU: the
 planner's arithmetic on the shapes that used to raise, the CUDA route's tier
 loop at that working set with the wrappers on CPU tensors (their plain
 versions) against ``wfa_tpu.align_pairs(backend='xla')``, ``probe_order``'s
@@ -71,21 +71,27 @@ def _geometry(tier, wf, banded, cigar, max_error, pen=BIG, smem=H100_SMEM):
                          ids=[s[0] for s in SHAPES])
 def test_planner_routes_large_a_to_k4_without_centre(name, tier, wf, banded,
                                                     cigar, max_error):
-    """Each shape runs on K4 with the whole ring in global memory; one
-    granule of centre no longer fits, and the rest of the block does."""
+    """Each shape runs on K4, which the whole ring once held in global
+    memory (no granule of centre fit): now in its compact ring, 17 rows of
+    68 bytes a centre diagonal, with a centre of the whole window or, for
+    10 kbp exact CIGARs, as many granules as fit."""
     A = BIG.active_working_set
     plan, opts, (cfg, full, cert, cap) = _geometry(tier, wf, banded, cigar,
                                                    max_error)
     assert engine_cuda.max_width(A, H100_SMEM, cigar) <= 0
     assert cfg.ring_global and cfg.banded == banded and full
-    assert cfg.wf_width == -(-wf // 128) * 128
-    assert engine_cuda.centre_width(A, cfg.wf_width, plan.nwords, cigar,
-                                    H100_SMEM) == 0
-    fixed = engine_cuda.smem_bytes(A, cfg.wf_width, cigar, True, 0, plan.nwords)
-    assert fixed <= H100_SMEM < fixed + 12 * A * engine_cuda.CENTRE_GRANULE
-    # The whole [3A, W] ring an alignment; each launch within the budget.
-    ring = engine_cuda.ring_bytes(A, cfg.wf_width, 0)
-    assert ring == 12 * A * cfg.wf_width
+    assert engine_cuda.compact_slots(cfg.penalties) == (9, 3, 1)
+    W = cfg.wf_width
+    assert W == -(-wf // 128) * 128
+    centre = engine_cuda.centre_width(BIG, W, plan.nwords, cigar, H100_SMEM)
+    assert 0 < centre <= W
+    fixed = engine_cuda.smem_bytes(BIG, W, cigar, True, 0, plan.nwords)
+    assert fixed + 68 * centre <= H100_SMEM
+    assert centre == W or H100_SMEM < fixed + 68 * (centre + engine_cuda.CENTRE_GRANULE)
+    # M's far ring [A, W] and the I/D edges an alignment; each launch
+    # within the budget.
+    ring = engine_cuda.ring_bytes(BIG, W, centre)
+    assert ring == 4 * A * W + 24 * (W - centre)
     if cigar:
         call_b = _cigar_call_batch(opts, cap, cfg.wf_width, ring)
         per_lane = engine_torch.num_chunks(cap) * cfg.wf_width * 4 + ring
@@ -95,25 +101,26 @@ def test_planner_routes_large_a_to_k4_without_centre(name, tier, wf, banded,
 
 
 def test_centre_zero_call_batches_and_the_last_refusal():
-    """At A = 601 and W = 16384 the ring is 118 MB an alignment: the call
-    batches stay at least 1 and within the budget.  Only a block that cannot
-    hold the per-slot window words, the scratch and the packed rows is
-    refused: 4 (2A + 66 + 2 (nw + 1)) bytes, past 232,448 from A = 28,958
-    at 65 words a row."""
-    A = BIG.active_working_set
-    ring = engine_cuda.ring_bytes(A, 16384, 0)
-    assert ring == 118_161_408
+    """At A = 601 and W = 16384 the compact ring at a centre of 0 is 39.8 MB
+    an alignment (the whole ring was 118 MB): the call batches stay at
+    least 1 and within the budget.  Only a block that cannot hold the
+    per-slot window words, the scratch and the packed rows is refused:
+    4 (2A + 66 + 2 (nw + 1)) bytes, past 232,448 from A = 28,958 at 65 words
+    a row."""
+    ring = engine_cuda.ring_bytes(BIG, 16384, 0)
+    assert ring == 4 * 601 * 16384 + 24 * 16384 == 39_780_352
     opts = AlignmentOptions(penalties=BIG)
-    assert _distance_call_batch(opts, ring) == (1 << 30) // ring == 9
+    assert _distance_call_batch(opts, ring) == (1 << 30) // ring == 26
     per_lane = engine_torch.num_chunks(4000) * 16384 * 4 + ring
-    assert _cigar_call_batch(opts, 4000, 16384, ring) == (1 << 30) // per_lane == 7
+    assert _cigar_call_batch(opts, 4000, 16384, ring) == (1 << 30) // per_lane == 14
     tiny = dataclasses.replace(opts, memory_budget_bytes=ring // 2)
     assert _distance_call_batch(tiny, ring) == _cigar_call_batch(
         tiny, 4000, 16384, ring) == 1
-    assert engine_cuda.smem_bytes(28_957, 1024, False, True, 0, 65) == 232_448
-    assert engine_cuda.centre_width(28_957, 1024, 65, False, H100_SMEM) == 0
+    last = Penalties(28_956, 6, 2)   # A = 28,957
+    assert engine_cuda.smem_bytes(last, 1024, False, True, 0, 65) == 232_448
+    assert engine_cuda.centre_width(last, 1024, 65, False, H100_SMEM) == 0
     with pytest.raises(ValueError, match="K4"):
-        engine_cuda.centre_width(28_958, 1024, 65, False, H100_SMEM)
+        engine_cuda.centre_width(Penalties(28_957, 6, 2), 1024, 65, False, H100_SMEM)
     with pytest.raises(ValueError, match="K4"):
         _geometry(1024, 2053, False, False, 3000, Penalties(28_957, 6, 2))
     _geometry(1024, 2053, False, False, 3000, Penalties(28_956, 6, 2))
@@ -127,8 +134,8 @@ def _pairs(n, lo, hi, seed):
 @pytest.mark.parametrize("banded", [False, True], ids=["exact", "banded"])
 @pytest.mark.parametrize("cigar", [False, True], ids=["distance", "cigar"])
 def test_run_tier_large_a_matches_xla(monkeypatch, banded, cigar):
-    """align_pairs at (600,6,2) through the CUDA route's tier loop (K4 at a
-    centre of 0, the wrappers' plain versions on the CPU) equals wfa_tpu's
+    """align_pairs at (600,6,2) through the CUDA route's tier loop (K4 in
+    its compact ring, the wrappers' plain versions on the CPU) equals wfa_tpu's
     XLA engine: distances, flags and CIGARs."""
     pairs = _pairs(6, 60, 120, 601 + 2 * banded + cigar)
     pats = [p for p, _ in pairs]
@@ -163,8 +170,9 @@ def test_run_tier_large_a_matches_xla(monkeypatch, banded, cigar):
 
 def test_probe_config_takes_k4_past_the_shared_ring():
     """W=128 fits a shared ring up to A = 150 (231,864 bytes); from 151 on
-    the probe launches banded K4, from 593 on with no shared centre; with no
-    shared memory given (the plain engine) the flag stays off."""
+    the probe launches banded K4, whose compact ring holds the whole window
+    in shared memory; with no shared memory given (the plain engine) the
+    flag stays off."""
     for x, ring in ((149, False), (150, True), (600, True)):
         pen = Penalties(x, 6, 2)
         cfg = _probe_config(pen, 3000, 0, H100_SMEM)
@@ -175,8 +183,10 @@ def test_probe_config_takes_k4_past_the_shared_ring():
     assert engine_cuda.smem_bytes(150, 128) == 231_864 <= H100_SMEM
     assert engine_cuda.smem_bytes(151, 128) == 233_408 > H100_SMEM
     # 4 kbp reads: 258 words a row.
-    assert engine_cuda.centre_width(151, 128, 258, False, H100_SMEM) == 96
-    assert engine_cuda.centre_width(593, 128, 258, False, H100_SMEM) == 0
+    assert engine_cuda.centre_width(Penalties(150, 6, 2), 128, 258, False,
+                                    H100_SMEM) == 128
+    assert engine_cuda.centre_width(Penalties(592, 6, 2), 128, 258, False,
+                                    H100_SMEM) == 128
 
 
 def test_probe_large_a_matches_xla():

@@ -39,14 +39,20 @@ lists of ms:
   and 1024 (null where the kernel refuses T), and exact K4 on
   ``seq_10K_n100`` with its centre pinned to 0 and 32 (``wide10k_k4_c0``,
   ``wide10k_k4_c32``);
-- ``big640_k4``, ``big640c_k4``, ``big2176_k4``, ``big2176x4_k4``: exact K4
-  at a large working set, penalties (600,6,2) (A = 601, a centre of 0: the
-  whole ring in global memory), on random pairs of 150-220 bp (W=640) in
-  distance and CIGAR-table mode and of 900-950 bp (W=2176), as many as
-  ``aligner._distance_call_batch`` / ``_cigar_call_batch`` put in one
-  launch at the default memory budget (x4: at four times it), at the
-  default threads and, as ``..._T``, at T = 512 and 1024 (W=640 takes at
-  most 640);
+- ``big640_k4``, ``big640c_k4``, ``big2176_k4``, ``big2176x4_k4``,
+  ``big2176c_k4``, ``big6016c_k4``, ``big256b_k4``, ``big580_k4``,
+  ``big3e200_k4``: K4 at large working sets, (600,6,2) (A = 601), (580,6,2)
+  and (3,200,1), on random pairs of 150-220 bp (W=640), 900-950 bp
+  (W=2176; banded W=256) and 9.8-10 kbp (W=6016), in distance and
+  CIGAR-table mode: the compact ring where the tree has it, else the whole
+  ring.  Each at as many pairs as the whole ring puts in one launch at the
+  default memory budget (x4: at four times it), the same pairs in every
+  tree; ``big..own_k4`` at as many as this tree puts in one launch
+  (``pairs_a_launch``: W, centre and both counts); ``big2176setup_k4``,
+  ``big6016csetup_k4`` stopped at score 0 (the block's set-up and, for the
+  whole ring, its reset); ``big640``, ``big640c``, ``big2176`` also at
+  T = 512 and 1024 threads (``..._T``; W=640 takes at most 640);
+  ``probe151_k4``: the probe's banded K4 at A = 151 on the 50 HiFi pairs;
 - with ``_rows`` on the wrappers, the HiFi times with the rows pinned in
   global memory (``hifi_k1_rows_global``, ``hifi_k2_rows_global``);
 - with ``engine_cuda.blocks_per_sm``, ``blocks_per_sm``: the blocks one SM
@@ -222,32 +228,74 @@ def main() -> int:
     for c in (0, 32):
         runs[f"wide10k_k4_c{c}"] = lambda c=c: K1(w10_cfg, *w10_args, _centre=c)
         optional.add(f"wide10k_k4_c{c}")
-    # Large working sets (a tree without a centre of 0 plans none of them).
-    big_pen = Penalties(600, 6, 2)
+    # Large working sets (A > 64): K4's compact ring in a tree that has it,
+    # the whole ring (at A = 601 a centre of 0) in one that does not; a tree
+    # without either plans none of them.  ``{name}_k4`` runs as many pairs
+    # as the whole ring puts in one launch, the same in every tree;
+    # ``{name}own_k4`` as many as this tree puts in one (``pairs_a_launch``);
+    # ``{name}setup_k4`` stops at score 0 (max_steps 2): the block's set-up
+    # and, for the whole ring, its reset.
+    def tree_arith(fn, p, *rest):
+        """fn(penalties, ...) in this tree's arithmetic, fn(A, ...) in a
+        tree whose K4 arithmetic takes the working set."""
+        try:
+            return fn(p, *rest)
+        except TypeError:
+            return fn(p.active_working_set, *rest)
+
     big_rng = np.random.default_rng(601)
     big_cfgs = []
-    for name, lo, hi, cigar, budget in (
-        ("big640", 150, 220, False, 1), ("big640c", 150, 220, True, 1),
-        ("big2176", 900, 950, False, 1), ("big2176x4", 900, 950, False, 4),
+    pairs_a_launch = {}
+    for name, pen_xoe, lo, hi, cigar, budget, band in (
+        ("big640", (600, 6, 2), 150, 220, False, 1, -1),
+        ("big640c", (600, 6, 2), 150, 220, True, 1, -1),
+        ("big2176", (600, 6, 2), 900, 950, False, 1, -1),
+        ("big2176x4", (600, 6, 2), 900, 950, False, 4, -1),
+        ("big2176c", (600, 6, 2), 900, 950, True, 1, -1),
+        ("big6016c", (600, 6, 2), 9800, 10000, True, 1, -1),
+        ("big256b", (600, 6, 2), 900, 950, False, 1, 25),
+        ("big580", (580, 6, 2), 900, 950, False, 1, -1),
+        ("big3e200", (3, 200, 1), 900, 950, False, 1, -1),
     ):
+        big_pen = Penalties(*pen_xoe)
         big_opts = AlignmentOptions(
             penalties=big_pen, max_error=3000, compute_cigar=cigar, backend="cuda",
+            band=band, band_width=256 if band > 0 else None,
             memory_budget_bytes=budget * AlignmentOptions().memory_budget_bytes)
-        pool = random_pairs(big_rng, 1024, lo, hi, 0.1, 0, 0)
+        pool = random_pairs(big_rng, 1024 if hi < 5000 else 64, lo, hi, 0.1, 0, 0)
+        lens = np.array([max(len(p), len(t)) for p, t in pool])
+        (plan,) = aligner._plan_tiers(lens, big_opts, big_opts.max_error)
         try:
-            cfg, cap, nw = route(pool, big_opts)
+            cfg, _, _, cap = aligner._tier_geometry_cuda(plan, big_opts, 3000, band, smem)
         except ValueError:
             continue
-        ring = engine_cuda.ring_bytes(big_pen.active_working_set, cfg.wf_width, 0)
-        n = (aligner._cigar_call_batch(big_opts, cap, cfg.wf_width, ring) if cigar
-             else aligner._distance_call_batch(big_opts, ring))
-        big_args = tensors(pool[:n], nw=nw)
+        nw, W = plan.nwords, cfg.wf_width
+        centre = tree_arith(engine_cuda.centre_width, big_pen, W, nw, cigar, smem)
+        whole = 12 * big_pen.active_working_set * W
+
+        def batch(ring, cigar=cigar, cap=cap, W=W, opts=big_opts):
+            return (aligner._cigar_call_batch(opts, cap, W, ring) if cigar
+                    else aligner._distance_call_batch(opts, ring))
+
+        n, own = batch(whole), batch(tree_arith(engine_cuda.ring_bytes, big_pen, W, centre))
+        pairs_a_launch[name] = {"W": W, "centre": centre, "whole_ring": n, "tree": own}
         big_cfgs.append((f"{name}_k4", cfg, nw, cigar))
-        for t in ("", 512, 1024):
-            kw = {"_threads": t} if t else {}
-            runs[f"{name}_k4" + (f"_{t}" if t else "")] = (
-                (lambda cfg=cfg, cap=cap, a=big_args, kw=kw: K2(cfg, cap, *a, **kw))
-                if cigar else (lambda cfg=cfg, a=big_args, kw=kw: K1(cfg, *a, **kw)))
+        stop = dataclasses.replace(cfg, max_steps=2)
+        for tag, c, m in (("", cfg, n), ("own", cfg, own), ("setup", stop, n)):
+            if (tag == "own" and own == n) or (tag == "setup" and name not in (
+                    "big2176", "big6016c")):
+                continue
+            a = tensors((pool * (m // len(pool) + 1))[:m], nw=nw)
+            for t in ("", 512, 1024) if tag == "" and name in (
+                    "big640", "big640c", "big2176") else ("",):
+                kw = {"_threads": t} if t else {}
+                runs[f"{name}{tag}_k4" + (f"_{t}" if t else "")] = (
+                    (lambda c=c, cap=cap, a=a, kw=kw: K2(c, cap, *a, **kw))
+                    if cigar else (lambda c=c, a=a, kw=kw: K1(c, *a, **kw)))
+    # The probe at A = 151 (banded K4 at W=128 on the 50 HiFi pairs).
+    probe_cfg = aligner._probe_config(Penalties(150, 6, 2), 3000, 0, smem)
+    probe_args = tensors(hifi_pairs)
+    runs["probe151_k4"] = lambda: K1(probe_cfg, *probe_args)
     for t in (512, 1024):
         runs[f"exact1k_k1_{t}"] = lambda t=t: K1(k1k_cfg, *k1k_args, _threads=t)
         runs[f"exact1k_k2_{t}"] = lambda t=t: K2(k1k_ccfg, k1k_cap, *k1k_args,
@@ -335,7 +383,8 @@ def main() -> int:
             occupancy[name] = engine_cuda.blocks_per_sm(cfg, nw, dev, cigar=cigar,
                                                         _threads=threads[0] if threads else 0)
     print(json.dumps({"card": card, "root": str(root), "ms": times,
-                      "blocks_per_sm": occupancy}), flush=True)
+                      "blocks_per_sm": occupancy,
+                      "pairs_a_launch": pairs_a_launch}), flush=True)
     return 0
 
 

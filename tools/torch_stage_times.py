@@ -6,9 +6,17 @@ distance and in CIGAR mode, on one of two workloads:
   ~14 kbp, banded, W=512, band 25, penalties 2,3,1, max_steps 3000 (K1;
   K2 + K3);
 * ``wide10k``: tests/data/seq_10K_n100.seq, 100 pairs of ~10 kbp, exact,
-  penalties 2,3,1, max_error 3000, W=6016 (K4; K4 + K3).
+  penalties 2,3,1, max_error 3000, W=6016 (K4; K4 + K3);
+* ``large1k``: the 24 random 850-950 bp pairs of ``chip_smoke.py`` phase
+  large-working-set (seed 601), exact, penalties 600,6,2 (A = 601), max_error
+  3000, W=2176 (K4 at a large working set; K4 + K3).
 
-    python3 tools/torch_stage_times.py [--workload hifi|wide10k] [--reps 3]
+    python3 tools/torch_stage_times.py [--workload hifi|wide10k|large1k]
+                                       [--reps 3] [--root DIR]
+
+``--root`` imports ``wfa_tpu_torch`` from another checkout (an earlier
+commit unpacked with ``git archive``), to compare two versions in turns on
+the same card.
 
 Needs a CUDA device.  Each stage the aligner calls is wrapped with a host
 clock (with ``torch.cuda.synchronize()`` around the copies and the kernels,
@@ -33,7 +41,9 @@ ROOT = Path(__file__).resolve().parent.parent
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=3, help="timed repeats per mode")
-    ap.add_argument("--workload", choices=("hifi", "wide10k"), default="hifi")
+    ap.add_argument("--workload", choices=("hifi", "wide10k", "large1k"),
+                    default="hifi")
+    ap.add_argument("--root", type=Path, default=ROOT)
     args = ap.parse_args()
 
     import torch
@@ -41,10 +51,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_stage_times: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(args.root.resolve()))
+    import numpy as np
+
     from wfa_tpu_torch import AlignmentOptions, Penalties, align_pairs, aligner, native
     from wfa_tpu_torch.ops import engine_cuda
     from wfa_tpu_torch.utils.io import read_seq_file
+    from wfa_tpu_torch.utils.synth import random_pairs
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,18 +93,26 @@ def main() -> int:
     timed(native, "cpu_align_batch", "cpu_fallback", False)
 
     data = ROOT / "tests" / "data"
+    pen = Penalties(2, 3, 1)
     if args.workload == "hifi":
         batch = read_seq_file(data / "test_hifi.seq")
         pats, txts = batch.patterns * 8, batch.texts * 8
         banded = dict(band=25, band_width=512)
-    else:
+    elif args.workload == "wide10k":
         batch = read_seq_file(data / "seq_10K_n100.seq")
         pats, txts = batch.patterns, batch.texts
         banded = {}
+    else:
+        rng = np.random.default_rng(601)
+        random_pairs(rng, 32, 90, 110, 0.1, 0, 0)        # the phase's 100 bp set
+        pairs = random_pairs(rng, 24, 850, 950, 0.05, 0, 0)
+        pats, txts = [p for p, _ in pairs], [t for _, t in pairs]
+        pen, banded = Penalties(600, 6, 2), {}
     report = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-              "workload": args.workload, "pairs": len(pats)}
+              "workload": args.workload, "pairs": len(pats),
+              "root": str(args.root.resolve())}
     for mode, cigar in (("distance", False), ("cigar", True)):
-        opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=3000,
+        opts = AlignmentOptions(penalties=pen, max_error=3000,
                                 compute_cigar=cigar, backend="cuda", **banded)
         align_pairs(pats[:8], txts[:8], opts)          # warm-up
         runs = []

@@ -160,11 +160,14 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
     ``o + e*(W/2+1)``, so a distance below that bound is optimal; the loop
     stops at the bound.  Banded, it takes K4 at its own W, never truncated
     or certified, where ``wfa_tpu`` runs its XLA engine
-    (``wfa_tpu/aligner.py:637-646``).  Where a large working set leaves no
-    room for a centre of 32 diagonals, K4 keeps the whole ring in global
-    memory (``centre_width`` 0); the one window refused is one whose block
-    cannot hold even the per-slot window words, the scratch and the packed
-    rows (``centre_width`` raises, near A = 29,000 on an H100).
+    (``wfa_tpu/aligner.py:637-646``).  At working sets above 64 every K4
+    launch keeps the compact ring (``engine_cuda.compact_slots``): only M's
+    far ring in global memory, the rest of the rows in shared memory as far
+    as the centre reaches.  Where no centre of 32 diagonals fits, K4 keeps
+    its rows' lanes in global memory (``centre_width`` 0); the one window
+    refused is one whose block cannot hold even the per-slot window words,
+    the scratch and the packed rows (``centre_width`` raises, near
+    A = 29,000 on an H100).
 
     In CIGAR mode (``wfa_tpu/aligner.py:204-224``) the choice table holds
     scores below ``score_cap = unfinished_score + 1``, capped at
@@ -188,7 +191,7 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
         score_limit = plan.score_limit
     if ring_global:
         # Raises where the block's part outside the ring does not fit.
-        engine_cuda.centre_width(A, w, plan.nwords, cigar, smem_bytes)
+        engine_cuda.centre_width(pen, w, plan.nwords, cigar, smem_bytes)
     cert_bound = pen.o + pen.e * (w // 2 + 1)
     score_cap = 0
     if cigar:
@@ -211,16 +214,16 @@ def _tier_geometry_cuda(plan, opts: AlignmentOptions, max_error: int,
 def _cigar_call_batch(opts: AlignmentOptions, score_cap: int, w: int,
                       ring: int = 0) -> int:
     """Pairs per K2/K4 launch: the memory budget over the bytes of one lane's
-    choice table and K4 edge ring (``ring``, ``engine_cuda.ring_bytes``), at
-    most _CUDA_CIGAR_CALL_BATCH."""
+    choice table and K4 global ring (``ring``, ``engine_cuda.ring_bytes``),
+    at most _CUDA_CIGAR_CALL_BATCH."""
     per_lane = engine_torch.num_chunks(score_cap) * w * 4 + ring
     return max(1, min(_CUDA_CIGAR_CALL_BATCH,
                       opts.memory_budget_bytes // per_lane))
 
 
 def _distance_call_batch(opts: AlignmentOptions, ring: int) -> int:
-    """Pairs per K1/K4 launch: _CUDA_CALL_BATCH, and with a K4 edge ring of
-    ``ring`` bytes a lane at most the memory budget over it."""
+    """Pairs per K1/K4 launch: _CUDA_CALL_BATCH, and with a K4 global ring
+    of ``ring`` bytes a lane at most the memory budget over it."""
     if not ring:
         return _CUDA_CALL_BATCH
     return max(1, min(_CUDA_CALL_BATCH, opts.memory_budget_bytes // ring))
@@ -305,15 +308,17 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
         plan, opts, max_error, band, smem
     )
     cigar = opts.compute_cigar
-    # K4's edges: what the part of the ring in shared memory leaves over.
-    # K4 stages the packed rows; K1/K2 where they fit beside the ring.
-    A = opts.penalties.active_working_set
+    # K4's global ring: what the part of the ring in shared memory leaves
+    # over (the compact ring: M's far ring besides).  K4 stages the packed
+    # rows; K1/K2 where they fit beside the ring.
+    pen = opts.penalties
+    A = pen.active_working_set
     ring = 0
     rows = "shared"
     if cfg.ring_global:
-        centre = engine_cuda.centre_width(A, cfg.wf_width, plan.nwords, cigar,
+        centre = engine_cuda.centre_width(pen, cfg.wf_width, plan.nwords, cigar,
                                           smem)
-        ring = engine_cuda.ring_bytes(A, cfg.wf_width, centre)
+        ring = engine_cuda.ring_bytes(pen, cfg.wf_width, centre)
     elif not engine_cuda.rows_fit(A, cfg.wf_width, plan.nwords, cigar, smem):
         rows = "global"
     cols = 2
@@ -439,8 +444,8 @@ def _probe_config(pen, max_error: int, band: int,
                   smem: int | None) -> EngineConfig:
     """The probe's config: banded at W=128 (band ``band``, or 25 in exact
     mode), on K1 where a block of ``smem`` bytes holds the shared ring, else
-    on banded K4 (``ring_global``: from A = 151 on an H100, and with no
-    shared centre from A = 593).  ``smem`` None: the plain engine, which
+    on banded K4 (``ring_global``: from A = 151 on an H100, in its compact
+    ring).  ``smem`` None: the plain engine, which
     ignores the flag."""
     ring = smem is not None and _PROBE_WIDTH > engine_cuda.max_width(
         pen.active_working_set, smem)

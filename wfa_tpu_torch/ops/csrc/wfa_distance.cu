@@ -58,10 +58,39 @@
 // (wide10k: about a tenth).  K4 also copies the block's two packed rows
 // into shared memory once, so the extension's loads are shared loads, and
 // runs up to 1024 threads a block (prepare).
-// C may be 0 (large working sets, where not one granule of 32 diagonals
-// fits beside the per-slot window words and the rows): ring_s then has no
-// rows, every lane's jc fails the test against C and goes to the slab, and
-// exact mode's shared fast path is never taken.
+// C may be 0 (pinned, or where not one granule of 32 diagonals fits beside
+// the per-slot window words and the rows): ring_s then has no rows, every
+// lane's jc fails the test against C and goes to the slab, and exact mode's
+// shared fast path is never taken.
+//
+// The compact ring (kCompact: every K4 launch with A > 64, exact or banded).
+// Only M's far parent, at f = max(x, o+e) = A - 1 scores back, needs A
+// slots; the rest of what a score reads lies a few scores back.  Shared
+// memory holds, C lanes a row: M's near ring of Mn = min(x, o+e) + 1 slots
+// (1 where x = o+e: both M parents are then far), the I and D rings of e + 1
+// slots each (a gap parent is e scores back), and two staging rows of M's far
+// parent; slot = score mod the ring's slots, so every parent slot is
+// (score + 1) mod slots and never this score's own.  Global memory holds M's
+// far ring [A, W] a block, written at every computed lane of every score
+// (stores only), and the slab of I's and D's edges [2 (e + 1), W - C].  M's
+// edges are read from the far ring at the parent's A-slot (the schedule's
+// columns 2 and 3), which still holds it.  The far parent's centre lanes are
+// copied into a staging row by cp.async one score ahead, the two rows
+// alternating by step: the next step's far parent was written at least one
+// score before this one unless the gap between the two scores is f itself
+// (x = o+e only), and then the copy follows this score's barrier.  Nothing is
+// reset: every read is masked by its parent's extent, exact by the parent's
+// cone radius (columns 11-13; outside it a read gives what K4's reset would
+// hold: M and D NULL, I NULL + 1; a missing parent NULL) and banded by the
+// parent's window, as before.  So the compact ring computes the cells the
+// whole ring computes, bit for bit.  Its extra columns (compact_columns in
+// engine_cuda.py): 7 near out slot, 8 gap out slot, 9 the near M parent's
+// slot, 10 the gap parent's slot (0 where none), 11-13 the cone radii of the
+// M[d-x], M[d-o-e] and I/D[d-e] parents (-1 where missing).  At (600,6,2)
+// that is 9 + 3 + 3 + 2 = 17 rows a diagonal against the whole ring's 1,803:
+// W=2176 fits whole (C = W), and M's far ring, 4 A W bytes a pair, is a
+// third of the whole ring's global bytes.
+//
 // Banded K4 keeps window lanes 0 .. C - 1 in shared memory instead (cl = 0):
 // a banded window grows from lane 0 until it reaches W, so its early scores
 // never touch the edges; once at full width every score computes every lane
@@ -109,7 +138,9 @@
 // scores.  K4 adds the edge traffic, 28 bytes a cell of the edges, at the
 // rate of L2 or of HBM (tools/torch_ring_bw.py measures it for this access
 // pattern); banded K4 has no cone, so once its window is full every score
-// reads and writes the whole edge.  Later work: the per-score work every
+// reads and writes the whole edge.  The compact ring moves one M store a
+// computed cell and one 16-byte copy per 4 centre lanes of the far parent a
+// score, off the score's chain.  Later work: the per-score work every
 // banded thread repeats (the window's bounds), several alignments per
 // block, and for K4 thread-block clusters when a launch has fewer pairs
 // than SMs.
@@ -133,16 +164,18 @@ constexpr int kMaxThreadsWide = 1024;   // K1, K2 exact; K4 exact and banded
 constexpr unsigned kFullWarp = 0xFFFFFFFFu;
 constexpr int kScratchInts = 66;      // argmin partials (2 per warp, <= 32 warps) + 2
 constexpr int kSchedCols = 7;         // score, out, mx, moe, ide, radius, previous radius
+constexpr int kCompactCols = 14;      // the compact ring's: 7 more (see above)
 constexpr int kCentreGranule = 32;    // K4's centre: 0 or a multiple of this
 
 // Shared-memory bytes for one block; wfa_tpu_torch.ops.engine_cuda.smem_bytes
-// holds the same formula.  K2 adds one choice row word per diagonal; K4
+// holds the same formula.  `rows` ring rows a diagonal (3A; the compact
+// ring's Mn + 2 (e + 1) + 2).  K2 adds one choice row word per diagonal; K4
 // holds only the ring's centre (C diagonals); the two packed rows, nw words
 // and a zero word each, where the block stages them (always for K4).
 __host__ __device__ inline size_t smem_bytes(int A, int W, bool cigar,
                                              bool ring_global, int centre,
-                                             int nw, bool seq_shared) {
-  const size_t ring = 3 * static_cast<size_t>(A) * (ring_global ? centre : W);
+                                             int nw, bool seq_shared, int rows) {
+  const size_t ring = static_cast<size_t>(rows) * (ring_global ? centre : W);
   const size_t seq = seq_shared ? 2 * (static_cast<size_t>(nw) + 1) : 0;
   return sizeof(int) * (ring + 2 * A + kScratchInts + (cigar ? W : 0) + seq);
 }
@@ -265,6 +298,18 @@ __device__ __forceinline__ uint32_t choice_of(int m_pb, int i_pb, int d_pb) {
                                ((d_pb & 3) == 2 ? wfa::kDExtBit : 0));
 }
 
+// The compact ring's prefetch: 16 bytes from global to shared memory,
+// through L2 only (the far ring is written in the same launch), waited for
+// by copy_wait before the barrier that publishes the staging row.
+__device__ __forceinline__ void copy16_async(int* smem, const int* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Lexicographic min of (value, index): the first index wins a tie.
 __device__ __forceinline__ void argmin_merge(int& v, int& j, int ov, int oj) {
   if (ov < v || (ov == v && oj < j)) {
@@ -291,7 +336,7 @@ constexpr int max_threads() {
   return kBanded && !kRingGlobal ? kMaxThreadsBanded : kMaxThreadsWide;
 }
 
-template <bool kBanded, bool kCigar, bool kRingGlobal, bool kSeqShared>
+template <bool kBanded, bool kCigar, bool kRingGlobal, bool kSeqShared, bool kCompact>
 __global__ void __launch_bounds__(max_threads<kBanded, kRingGlobal>(),
                                   !kBanded && !kRingGlobal && kSeqShared ? 2 : 1)
 wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
@@ -302,8 +347,11 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
            int A, int W, int band, int* __restrict__ dist_out,
            unsigned char* __restrict__ fin_out,
            int* __restrict__ choice, int num_chunks,
-           int* __restrict__ lo_trace, int lo_stride, int* edge, int centre) {
+           int* __restrict__ lo_trace, int lo_stride, int* edge, int centre,
+           int near_slots, int gap_slots, int far_mask) {
   static_assert(kSeqShared || !kRingGlobal, "K4 stages the packed rows");
+  static_assert(kRingGlobal || !kCompact, "the compact ring is K4's");
+  constexpr int kCols = kCompact ? kCompactCols : kSchedCols;
   extern __shared__ int smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -326,20 +374,30 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
 
   // The ring's rows hold lanes cl .. cl + C - 1 in shared memory (all W for
   // K1/K2; banded K4 from lane 0); K4's edges, W - C a row, are in this
-  // block's global slab.
+  // block's global slab.  The compact ring's shared rows: M's near slots
+  // (Mn), I's and D's (E1 each), then the two staging rows; its slab holds
+  // I's and D's edges only (rows from srow0 on), after the far ring.
   const int C = kRingGlobal ? centre : W;
   const int cl = kBanded ? 0 : (W - C) / 2;
   const int WE = W - C;
+  const int Mn = near_slots;
+  const int E1 = gap_slots;
+  const int stage0 = Mn + 2 * E1;
+  const int srow0 = kCompact ? Mn : 0;
   int* ring_s = smem;
-  int* win_lo = ring_s + 3 * A * C;
+  int* win_lo = ring_s + (kCompact ? stage0 + 2 : 3 * A) * C;
   int* win_ext = win_lo + A;
   int* scratch = win_ext + A;
   // K2: the current choice row word of each diagonal.
   uint32_t* row_word = reinterpret_cast<uint32_t*>(scratch + kScratchInts);
   // The block's packed pattern and text rows, where it stages them.
   uint32_t* seq_s = row_word + (kCigar ? W : 0);
-  int* slab = kRingGlobal && WE > 0 ? edge + static_cast<size_t>(b) * 3 * A * WE
-                                    : nullptr;
+  int* far = kCompact ? edge + static_cast<size_t>(b) *
+                                   (static_cast<size_t>(A) * W + static_cast<size_t>(2 * E1) * WE)
+                      : nullptr;
+  int* slab = kCompact ? far + static_cast<size_t>(A) * W
+              : kRingGlobal && WE > 0 ? edge + static_cast<size_t>(b) * 3 * A * WE
+                                      : nullptr;
   const uint32_t* gp = pat + static_cast<size_t>(b) * nw;
   const uint32_t* gt = txt + static_cast<size_t>(b) * nw;
   const uint32_t* P = kSeqShared ? seq_s : gp;
@@ -349,7 +407,7 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     if (kRingGlobal) {
       const int jc = j - cl;
       if (static_cast<unsigned>(jc) >= static_cast<unsigned>(C)) {
-        return slab[static_cast<size_t>(row) * WE + (jc < 0 ? j : j - C)];
+        return slab[static_cast<size_t>(row - srow0) * WE + (jc < 0 ? j : j - C)];
       }
       return ring_s[row * C + jc];
     }
@@ -359,13 +417,27 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     if (kRingGlobal) {
       const int jc = j - cl;
       if (static_cast<unsigned>(jc) >= static_cast<unsigned>(C)) {
-        slab[static_cast<size_t>(row) * WE + (jc < 0 ? j : j - C)] = v;
+        slab[static_cast<size_t>(row - srow0) * WE + (jc < 0 ? j : j - C)] = v;
         return;
       }
       ring_s[row * C + jc] = v;
       return;
     }
     ring_s[row * W + j] = v;
+  };
+  // Compact: M of a score whose shared row is srow (a near slot or a
+  // staging row) and whose far-ring slot is aslot, at lane j: the centre
+  // from shared memory, the edges from the far ring.  m_st writes this
+  // score's M into its near slot (centre lanes) and its far-ring slot.
+  auto m_ld = [&](int srow, int aslot, int j) -> int {
+    const int jc = j - cl;
+    if (static_cast<unsigned>(jc) < static_cast<unsigned>(C)) return ring_s[srow * C + jc];
+    return far[static_cast<size_t>(aslot) * W + j];
+  };
+  auto m_st = [&](int nslot, int aslot, int j, int v) {
+    const int jc = j - cl;
+    if (static_cast<unsigned>(jc) < static_cast<unsigned>(C)) ring_s[nslot * C + jc] = v;
+    far[static_cast<size_t>(aslot) * W + j] = v;
   };
   // Banded: a parent window read at a shifted lane; outside [0, ext] NULL.
   auto win_read = [&](int row, int rel, int ext) -> int {
@@ -379,17 +451,45 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     ring_st(A + slot, j, i_reset);
     ring_st(2 * A + slot, j, kNull);
   };
+  // Compact: copies the centre lanes of step s's far M parent that its
+  // cells may read (exact: the parent's cone; banded: its window) from the
+  // far ring into staging row `buf`, a 16-byte copy at a time (cl and C are
+  // multiples of 16 and 32 lanes).
+  auto prefetch = [&](int s, int buf) {
+    if (!kCompact || s >= num_steps || C == 0) return;
+    const int* row = sched + kCols * s;
+    const bool fx = far_mask & 1;
+    const int aslot = fx ? row[2] : row[3];
+    if (aslot < 0) return;
+    int lo = 0;
+    int hi = 0;
+    if (kBanded) {
+      hi = min(win_ext[aslot], C - 1);
+    } else {
+      const int r = fx ? row[11] : row[12];
+      lo = max(W2 - r - cl, 0);
+      hi = min(W2 + r - cl, C - 1);
+    }
+    int* dst = ring_s + (stage0 + buf) * C;
+    const int* src = far + static_cast<size_t>(aslot) * W + cl;
+    for (int g = (lo >> 2) + tid; g <= (hi >> 2); g += nthreads) {
+      copy16_async(dst + 4 * g, src + 4 * g);
+    }
+  };
 
-  for (int i = tid; i < 3 * A * C; i += nthreads) {
-    const int row = i / C;
-    ring_s[i] = (row >= A && row < 2 * A) ? i_reset : kNull;
-  }
-  if (kRingGlobal) {
-    const size_t n = static_cast<size_t>(3) * A * WE;
-    for (size_t i = tid; i < n; i += nthreads) {
-      const size_t row = i / WE;
-      slab[i] = (row >= static_cast<size_t>(A) && row < 2 * static_cast<size_t>(A))
-                    ? i_reset : kNull;
+  // The compact ring resets nothing (every read is masked, see above).
+  if (!kCompact) {
+    for (int i = tid; i < 3 * A * C; i += nthreads) {
+      const int row = i / C;
+      ring_s[i] = (row >= A && row < 2 * A) ? i_reset : kNull;
+    }
+    if (kRingGlobal) {
+      const size_t n = static_cast<size_t>(3) * A * WE;
+      for (size_t i = tid; i < n; i += nthreads) {
+        const size_t row = i / WE;
+        slab[i] = (row >= static_cast<size_t>(A) && row < 2 * static_cast<size_t>(A))
+                      ? i_reset : kNull;
+      }
     }
   }
   if (kSeqShared) {
@@ -428,7 +528,11 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       init = extend<kSeqShared>(0, 0, P, T, nw, plen, tlen);
     }
     if (tid == 0) {
-      ring_st(0, kBanded ? 0 : W2, init);
+      if constexpr (kCompact) {
+        m_st(0, 0, kBanded ? 0 : W2, init);
+      } else {
+        ring_st(0, kBanded ? 0 : W2, init);
+      }
       scratch[0] = init;
     }
   }
@@ -440,11 +544,17 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     }
     return;
   }
+  if (kCompact) {
+    // The first step's far parent can only be score 0.
+    prefetch(0, 0);
+    copy_wait();
+    __syncthreads();
+  }
 
   // K2 exact: the widest cone of the current choice row (uniform).
   int row_r = 0;
   for (int s = 0; s < num_steps; ++s) {
-    const int* row = sched + kSchedCols * s;
+    const int* row = sched + kCols * s;
     const int d = row[0];
     const int oslot = row[1];
     const int sx = row[2];
@@ -452,7 +562,30 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
     const int se = row[4];
     // K2: this is the last scheduled score of its choice row.
     const bool row_ends =
-        s + 1 == num_steps || (sched[kSchedCols * (s + 1)] >> 3) != (d >> 3);
+        s + 1 == num_steps || (sched[kCols * (s + 1)] >> 3) != (d >> 3);
+    // Compact: this score's near and gap slots; the shared rows of its M
+    // parents (the far one's: this step's staging row), its gap parent's
+    // slot and, exact, the parents' cone radii (-1: missing); what a read
+    // of I outside its parent's cone gives.  Then the next step's far
+    // parent is copied now, or after this score's barrier if it is this
+    // score (`late`).
+    int near_out = 0, gap_out = 0, mx_row = 0, moe_row = 0, gap_in = 0;
+    int rad_x = -1, rad_oe = -1, rad_e = -1, i_out = kNull;
+    bool late = false;
+    if constexpr (kCompact) {
+      const int stage = stage0 + (s & 1);
+      near_out = row[7];
+      gap_out = row[8];
+      mx_row = (far_mask & 1) ? stage : row[9];
+      moe_row = (far_mask & 2) ? stage : row[9];
+      gap_in = row[10];
+      rad_x = row[11];
+      rad_oe = row[12];
+      rad_e = row[13];
+      i_out = se < 0 ? kNull : i_reset;
+      late = s + 1 < num_steps && sched[kCols * (s + 1)] - (A - 1) == d;
+      if (!late) prefetch(s + 1, (s + 1) & 1);
+    }
 
     int lo_n = -W2;
     int ext_n = W - 1;
@@ -493,11 +626,14 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
           }
         };
         // Lanes below C from ring_s directly (K4's shared pass), the rest
-        // through ring_ld; the merge is order-free.
+        // through ring_ld (compact: the far ring); the merge is order-free.
+        const int xrow = kCompact ? mx_row : sx;
         const int cs = kRingGlobal ? min(extx, C) : extx;
-        for (int j = tid; j < cs; j += nthreads) consider(j, ring_s[sx * C + j]);
+        for (int j = tid; j < cs; j += nthreads) consider(j, ring_s[xrow * C + j]);
         if (kRingGlobal) {
-          for (int j = cs + tid; j < extx; j += nthreads) consider(j, ring_ld(sx, j));
+          for (int j = cs + tid; j < extx; j += nthreads) {
+            consider(j, kCompact ? far[static_cast<size_t>(sx) * W + j] : ring_ld(sx, j));
+          }
         }
         for (int off = 16; off > 0; off >>= 1) {
           const int ov = __shfl_down_sync(0xFFFFFFFFu, best, off);
@@ -540,10 +676,13 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       const int r_prev = min(row[6], W2);
       j0 = W2 - r;
       j1 = min(W - 1, W2 + r);
-      // The slot's previous score reached further: reset the difference.
-      for (int t = tid; t < 2 * (r_prev - r); t += nthreads) {
-        const int j = t < r_prev - r ? W2 - r_prev + t : W2 + r + 1 + t - (r_prev - r);
-        if (j < W) reset_cell(oslot, j);
+      // The slot's previous score reached further: reset the difference
+      // (the compact ring masks its reads instead).
+      if (!kCompact) {
+        for (int t = tid; t < 2 * (r_prev - r); t += nthreads) {
+          const int j = t < r_prev - r ? W2 - r_prev + t : W2 + r + 1 + t - (r_prev - r);
+          if (j < W) reset_cell(oslot, j);
+        }
       }
       wide_row = r < row_r;
       row_r = max(row_r, r);
@@ -562,13 +701,14 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       int i_open, i_ext, d_open, d_ext, x_off, k;
       if constexpr (kBanded) {
         // Child lane j is diagonal lo_n + j; each parent is read at its
-        // own window base (rows: M slot, A + I slot, 2A + D slot); a
-        // missing parent has extent -1, so every read of it is NULL.
+        // own window base (rows: M slot, A + I slot, 2A + D slot; compact:
+        // the rows above); a missing parent has extent -1, so every read
+        // of it is NULL.
         const int r_oe = sh_oe + j;
         const int r_e = sh_e + j;
         const int r_x = sh_x + j;
         if (shared) {
-          if (live && j > ext_n) {
+          if (!kCompact && live && j > ext_n) {
             ring_s[oslot * C + j] = kNull;
             ring_s[(A + oslot) * C + j] = i_reset;
             ring_s[(2 * A + oslot) * C + j] = kNull;
@@ -576,11 +716,28 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
           auto rd = [&](int row, int rel, int ext) -> int {
             return (rel < 0 || rel > ext) ? kNull : ring_s[row * C + rel];
           };
-          i_open = rd(soe, r_oe - 1, ext_oe);
-          d_open = rd(soe, r_oe + 1, ext_oe);
-          i_ext = rd(A + se, r_e - 1, ext_e);
-          d_ext = rd(2 * A + se, r_e + 1, ext_e);
-          x_off = rd(sx, r_x, ext_x);
+          if constexpr (kCompact) {
+            i_open = rd(moe_row, r_oe - 1, ext_oe);
+            d_open = rd(moe_row, r_oe + 1, ext_oe);
+            i_ext = rd(Mn + gap_in, r_e - 1, ext_e);
+            d_ext = rd(Mn + E1 + gap_in, r_e + 1, ext_e);
+            x_off = rd(mx_row, r_x, ext_x);
+          } else {
+            i_open = rd(soe, r_oe - 1, ext_oe);
+            d_open = rd(soe, r_oe + 1, ext_oe);
+            i_ext = rd(A + se, r_e - 1, ext_e);
+            d_ext = rd(2 * A + se, r_e + 1, ext_e);
+            x_off = rd(sx, r_x, ext_x);
+          }
+        } else if constexpr (kCompact) {
+          auto m_win = [&](int srow, int aslot, int rel, int ext) -> int {
+            return (rel < 0 || rel > ext) ? kNull : m_ld(srow, aslot, rel);
+          };
+          i_open = m_win(moe_row, soe, r_oe - 1, ext_oe);
+          d_open = m_win(moe_row, soe, r_oe + 1, ext_oe);
+          i_ext = win_read(Mn + gap_in, r_e - 1, ext_e);
+          d_ext = win_read(Mn + E1 + gap_in, r_e + 1, ext_e);
+          x_off = m_win(mx_row, sx, r_x, ext_x);
         } else {
           if (live && j > ext_n) reset_cell(oslot, j);
           i_open = win_read(soe, r_oe - 1, ext_oe);
@@ -591,6 +748,27 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
         }
         live = live && j <= ext_n;
         k = lo_n + j;
+      } else if constexpr (kCompact) {
+        // Each read masked by its parent's cone (a missing parent's radius
+        // is -1); the cell and its parents in shared memory away from the
+        // centre's ends, else M's edges from the far ring.
+        k = j - W2;
+        if (j > cl && j + 1 < cl + C) {
+          const int* c = ring_s + (j - cl);
+          i_open = abs(k - 1) <= rad_oe ? c[moe_row * C - 1] : kNull;
+          d_open = abs(k + 1) <= rad_oe ? c[moe_row * C + 1] : kNull;
+          i_ext = abs(k - 1) <= rad_e ? c[(Mn + gap_in) * C - 1] : i_out;
+          d_ext = abs(k + 1) <= rad_e ? c[(Mn + E1 + gap_in) * C + 1] : kNull;
+          x_off = abs(k) <= rad_x ? c[mx_row * C] : kNull;
+        } else {
+          i_open = (j == 0 || abs(k - 1) > rad_oe) ? kNull : m_ld(moe_row, soe, j - 1);
+          d_open = (j == W - 1 || abs(k + 1) > rad_oe) ? kNull : m_ld(moe_row, soe, j + 1);
+          i_ext = j == 0 ? kNull
+                  : abs(k - 1) <= rad_e ? ring_ld(Mn + gap_in, j - 1) : i_out;
+          d_ext = (j == W - 1 || abs(k + 1) > rad_e) ? kNull
+                                                      : ring_ld(Mn + E1 + gap_in, j + 1);
+          x_off = abs(k) > rad_x ? kNull : m_ld(mx_row, sx, j);
+        }
       } else if (!kRingGlobal || (j > cl && j + 1 < cl + C)) {
         // The cell and its parents in shared memory (for K4 never at the
         // window's ends).
@@ -627,8 +805,21 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       }
       if (!live) continue;
       if constexpr (!kBanded) m_new = extend<kSeqShared>(m_pb >> 2, k, P, T, nw, plen, tlen);
-      if (kBanded ? shared
-                  : !kRingGlobal || static_cast<unsigned>(j - cl) < static_cast<unsigned>(C)) {
+      if constexpr (kCompact) {
+        if (kBanded ? shared : static_cast<unsigned>(j - cl) < static_cast<unsigned>(C)) {
+          int* c = ring_s + (j - cl);
+          c[near_out * C] = m_new;
+          c[(Mn + gap_out) * C] = i_new;
+          c[(Mn + E1 + gap_out) * C] = d_new;
+          far[static_cast<size_t>(oslot) * W + j] = m_new;
+        } else {
+          m_st(near_out, oslot, j, m_new);
+          ring_st(Mn + gap_out, j, i_new);
+          ring_st(Mn + E1 + gap_out, j, d_new);
+        }
+      } else if (kBanded ? shared
+                         : !kRingGlobal ||
+                               static_cast<unsigned>(j - cl) < static_cast<unsigned>(C)) {
         int* c = ring_s + (j - cl);
         c[oslot * C] = m_new;
         c[(A + oslot) * C] = i_new;
@@ -657,13 +848,22 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
       }
       if (kCigar && kBanded) lo_trace[static_cast<size_t>(b) * lo_stride + d] = lo_n;
     }
+    if (kCompact) copy_wait();
     __syncthreads();
 
     // Termination: M[tlen - plen] == tlen; banded also stops, unfinished,
-    // when the target diagonal overshoots.
+    // when the target diagonal overshoots.  (Compact, exact: a lane outside
+    // this score's cone holds an older score's M.)
     if (abs(target_k) <= d) {
       const int rel = target_k - lo_n;
-      const int m_at_t = (rel < 0 || rel > ext_n) ? kNull : ring_ld(oslot, rel);
+      int m_at_t = kNull;
+      if (rel >= 0 && rel <= ext_n) {
+        if constexpr (kCompact) {
+          if (kBanded || abs(target_k) <= row[5]) m_at_t = m_ld(near_out, oslot, rel);
+        } else {
+          m_at_t = ring_ld(oslot, rel);
+        }
+      }
       const bool hit = m_at_t == target_off;
       if (hit || (kBanded && m_at_t > target_off)) {
         // The trailing partial row.
@@ -675,6 +875,11 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
         return;
       }
     }
+    if (kCompact && late) {
+      prefetch(s + 1, (s + 1) & 1);
+      copy_wait();
+      __syncthreads();
+    }
   }
   // Out of steps: unfinished, reported at the last score + 1.  The last
   // step ended its row, so K2 has stored every row.
@@ -684,27 +889,44 @@ wfa_kernel(const uint32_t* __restrict__ pat, const uint32_t* __restrict__ txt,
   }
 }
 
+// The compact ring's slots (near_slots 0: not compact) and which M
+// parents are far (bit 0: M[d-x], bit 1: M[d-o-e]).
+struct Compact {
+  int near_slots, gap_slots, far_mask;
+  bool on() const { return near_slots > 0; }
+  int rows() const { return near_slots + 2 * gap_slots + 2; }
+};
+
 // One instantiation of wfa_kernel.
-template <bool kBanded, bool kCigar, bool kRingGlobal, bool kSeqShared>
+template <bool kBanded, bool kCigar, bool kRingGlobal, bool kSeqShared,
+          bool kCompact = false>
 struct Variant {
-  static auto kernel() { return &wfa_kernel<kBanded, kCigar, kRingGlobal, kSeqShared>; }
-  static size_t smem(int A, int W, int centre, int nw) {
-    return smem_bytes(A, W, kCigar, kRingGlobal, centre, nw, kSeqShared);
+  static auto kernel() {
+    return &wfa_kernel<kBanded, kCigar, kRingGlobal, kSeqShared, kCompact>;
+  }
+  static size_t smem(int A, int W, int centre, int nw, Compact cp) {
+    return smem_bytes(A, W, kCigar, kRingGlobal, centre, nw, kSeqShared,
+                      kCompact ? cp.rows() : 3 * A);
   }
   static constexpr int kMost = max_threads<kBanded, kRingGlobal>();
   static constexpr bool kRing = kRingGlobal;
 };
 
 // Calls fn(Variant<...>{}) with the instantiation for these arguments: K4
-// banded or exact when centre >= 0 (rows always staged), else K1/K2 banded
-// or exact, with the rows staged or not.
+// banded or exact when centre >= 0 (rows always staged; the compact ring
+// where cp is on), else K1/K2 banded or exact, with the rows staged or not.
 template <bool kCigar, class Fn>
-int with_variant(int band, int centre, int rows_shared, Fn&& fn) {
+int with_variant(int band, int centre, int rows_shared, Compact cp, Fn&& fn) {
   if (centre >= 0) {
     if (!rows_shared) return static_cast<int>(cudaErrorInvalidValue);
+    if (cp.on()) {
+      return band > 0 ? fn(Variant<true, kCigar, true, true, true>{})
+                      : fn(Variant<false, kCigar, true, true, true>{});
+    }
     return band > 0 ? fn(Variant<true, kCigar, true, true>{})
                     : fn(Variant<false, kCigar, true, true>{});
   }
+  if (cp.on()) return static_cast<int>(cudaErrorInvalidValue);
   if (band > 0) {
     return rows_shared ? fn(Variant<true, kCigar, false, true>{})
                        : fn(Variant<true, kCigar, false, false>{});
@@ -723,12 +945,13 @@ int with_variant(int band, int centre, int rows_shared, Fn&& fn) {
 // ms at 512, 273 of them 3.87 against 4.12; with CIGARs at W=640, one
 // block of 640 against two of 512, 0.75 against 0.64; PERF.md).
 template <class V>
-int prepare(int A, int W, int nw, int centre, int& threads, size_t& smem) {
+int prepare(int A, int W, int nw, int centre, Compact cp, int& threads,
+            size_t& smem) {
   if (W <= 0 || W % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (threads != 0 && (threads < 32 || threads > V::kMost || threads % 32 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  smem = V::smem(A, W, centre, nw);
+  smem = V::smem(A, W, centre, nw, cp);
   cudaError_t err = cudaFuncSetAttribute(
       V::kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -759,19 +982,23 @@ int dispatch(const void* pat, const void* txt, int nw, const void* plen,
              const void* tlen, const void* valid, const void* sched,
              int num_steps, int unfinished_score, int A, int W, int band,
              void* dist, void* fin, void* choice, int num_chunks, void* lo_trace,
-             int lo_stride, void* edge, int centre, int rows_shared,
+             int lo_stride, void* edge, int centre, Compact cp, int rows_shared,
              int threads, int B, int device, void* stream) {
-  return with_variant<kCigar>(band, centre, rows_shared, [&](auto v) -> int {
+  return with_variant<kCigar>(band, centre, rows_shared, cp, [&](auto v) -> int {
     using V = decltype(v);
     if (B == 0) return 0;
     if (centre >= 0 && (centre > W || centre % kCentreGranule != 0 ||
-                        (centre < W && edge == nullptr))) {
+                        ((centre < W || cp.on()) && edge == nullptr))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (cp.on() && (cp.near_slots > A || cp.gap_slots < 2 || cp.gap_slots > A ||
+                    cp.far_mask < 1 || cp.far_mask > 3)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     size_t smem = 0;
-    if (const int rc = prepare<V>(A, W, nw, centre, threads, smem)) return rc;
+    if (const int rc = prepare<V>(A, W, nw, centre, cp, threads, smem)) return rc;
     const auto kernel = V::kernel();
     kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(pat), static_cast<const uint32_t*>(txt), nw,
@@ -779,7 +1006,8 @@ int dispatch(const void* pat, const void* txt, int nw, const void* plen,
         static_cast<const unsigned char*>(valid), static_cast<const int*>(sched),
         num_steps, unfinished_score, A, W, band, static_cast<int*>(dist),
         static_cast<unsigned char*>(fin), static_cast<int*>(choice), num_chunks,
-        static_cast<int*>(lo_trace), lo_stride, static_cast<int*>(edge), centre);
+        static_cast<int*>(lo_trace), lo_stride, static_cast<int*>(edge), centre,
+        cp.near_slots, cp.gap_slots, cp.far_mask);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -792,7 +1020,11 @@ extern "C" {
 // 0 for none; edge: [B, 3A, W - centre] int32 scratch, null when
 // centre == W) on `stream` over B alignments of `threads` (0: see prepare)
 // threads; rows_shared != 0 stages the packed rows in shared memory (K4
-// requires it); returns a cudaError_t (0 = ok).
+// requires it); returns a cudaError_t (0 = ok).  near_slots > 0 launches
+// K4's compact ring (near_slots, gap_slots: the M near ring's and each gap
+// ring's slots; far_mask: which M parents are far, bit 0 M[d-x], bit 1
+// M[d-o-e]); its edge buffer holds, a block, the far ring [A, W] and then
+// the I and D edges [2 gap_slots, W - centre], and its sched has 14 columns.
 // pat/txt: [B, nw] packed u32 rows; plen/tlen: [B] int32; valid: [B] bool;
 // sched: [num_steps, 7] int32 (score, out, mx, moe, ide slots, cone radius,
 // the out slot's previous cone radius); dist: [B] int32 out; fin: [B] bool
@@ -801,12 +1033,14 @@ int wfa_distance_launch(const void* pat, const void* txt, int nw,
                         const void* plen, const void* tlen, const void* valid,
                         const void* sched, int num_steps, int unfinished_score,
                         int A, int W, int band, void* dist, void* fin,
-                        void* edge, int centre, int rows_shared, int threads,
-                        int B, int device, void* stream) {
+                        void* edge, int centre, int near_slots, int gap_slots,
+                        int far_mask, int rows_shared, int threads, int B,
+                        int device, void* stream) {
   return dispatch<false>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
                          unfinished_score, A, W, band, dist, fin, nullptr, 0,
-                         nullptr, 0, edge, centre, rows_shared, threads, B,
-                         device, stream);
+                         nullptr, 0, edge, centre,
+                         Compact{near_slots, gap_slots, far_mask}, rows_shared,
+                         threads, B, device, stream);
 }
 
 // K2, or K4 in CIGAR mode when centre >= 0: K1 plus the
@@ -819,32 +1053,36 @@ int wfa_cigar_launch(const void* pat, const void* txt, int nw, const void* plen,
                      int num_steps, int unfinished_score, int A, int W,
                      int band, void* dist, void* fin, void* choice,
                      int num_chunks, void* lo_trace, int lo_stride, void* edge,
-                     int centre, int rows_shared, int threads, int B,
-                     int device, void* stream) {
+                     int centre, int near_slots, int gap_slots, int far_mask,
+                     int rows_shared, int threads, int B, int device,
+                     void* stream) {
   return dispatch<true>(pat, txt, nw, plen, tlen, valid, sched, num_steps,
                         unfinished_score, A, W, band, dist, fin, choice,
                         num_chunks, band > 0 ? lo_trace : nullptr,
-                        band > 0 ? lo_stride : 0, edge, centre, rows_shared,
+                        band > 0 ? lo_stride : 0, edge, centre,
+                        Compact{near_slots, gap_slots, far_mask}, rows_shared,
                         threads, B, device, stream);
 }
 
 // The threads a block of the kernel these arguments select would get
 // (threads 0: see prepare) and how many such blocks one SM holds at once:
 // out[0] blocks, out[1] threads.
-int wfa_blocks_per_sm(int cigar, int band, int centre, int rows_shared, int A,
-                      int W, int nw, int threads, int device, int* out) {
+int wfa_blocks_per_sm(int cigar, int band, int centre, int near_slots,
+                      int gap_slots, int rows_shared, int A, int W, int nw,
+                      int threads, int device, int* out) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const Compact cp{near_slots, gap_slots, 1};
   auto query = [&](auto v) -> int {
     using V = decltype(v);
     size_t smem = 0;
-    if (const int rc = prepare<V>(A, W, nw, centre, threads, smem)) return rc;
+    if (const int rc = prepare<V>(A, W, nw, centre, cp, threads, smem)) return rc;
     out[1] = threads;
     return static_cast<int>(
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, V::kernel(), threads, smem));
   };
-  return cigar ? with_variant<true>(band, centre, rows_shared, query)
-               : with_variant<false>(band, centre, rows_shared, query);
+  return cigar ? with_variant<true>(band, centre, rows_shared, cp, query)
+               : with_variant<false>(band, centre, rows_shared, cp, query);
 }
 
 // Largest dynamic shared memory a block may opt in to on `device`.

@@ -11,15 +11,19 @@ two and ``align_cigar_cuda`` launch K4 in place of K1 and K2, exact or
 banded: the same outputs, with ``centre_width`` lanes of the ring in shared
 memory (exact: the diagonals around W/2; banded: the window's first lanes;
 none where a large working set leaves no room for 32) and its edges in a
-global scratch buffer.  K1 and K2 stage the
-two packed rows in shared memory where they fit beside the ring
-(``rows_fit``, host arithmetic before the launch) and read them from global
-memory where they do not.  K3 walks each alignment with one warp, two walks
+global scratch buffer.  At working sets above 64 (``COMPACT_MIN_A``) K4
+keeps the compact ring (``compact_slots``): M's near slots, the I and D rings
+of e + 1 slots and two staging rows in shared memory, and only M's far ring
+of A slots, written every score and read at one slot, in global memory.
+K1 and K2 stage the two packed rows in shared memory where they fit beside
+the ring (``rows_fit``, host arithmetic before the launch) and read them from
+global memory where they do not.  K3 walks each alignment with one warp, two walks
 a block (``TRACEBACK_WARPS``), with the current choice row's window in
 registers and the next three rows' copied ahead into shared memory.  On CPU tensors each runs its plain version; on
 CUDA tensors it launches its kernel on the current stream or raises — it
 never falls back.  ``LAUNCHES`` counts each kernel's launches (banded K4
-apart from exact K4: ``*_ring_banded``), and K1's and K2's by row placement
+apart from exact K4: ``*_ring_banded``; the compact ring's among them again
+as ``*_compact``), and K1's and K2's by row placement
 (``rows_shared``, ``rows_global``), so a run can show that its main path
 went through the kernels; the counts are exact when several threads launch
 at once.
@@ -30,9 +34,11 @@ import ctypes
 import functools
 import threading
 
+import numpy as np
 import torch
 
 from ..schedule import build_schedule, cone_radii
+from ..types import Penalties
 from . import engine_torch, traceback_torch
 from ._build import check, check_inputs, load_library
 from .engine_torch import EngineConfig
@@ -42,6 +48,7 @@ LAUNCHES = {
     "wfa_distance": 0, "wfa_cigar": 0, "wfa_traceback": 0,
     "wfa_distance_ring": 0, "wfa_cigar_ring": 0,
     "wfa_distance_ring_banded": 0, "wfa_cigar_ring_banded": 0,
+    "wfa_distance_compact": 0, "wfa_cigar_compact": 0,
     "rows_shared": 0, "rows_global": 0,
 }
 _LAUNCHES_LOCK = threading.Lock()
@@ -49,21 +56,62 @@ _LAUNCHES_LOCK = threading.Lock()
 _SCRATCH_INTS = 66  # kScratchInts in csrc/wfa_distance.cu
 TRACEBACK_WARPS = 2  # K3's walks (warps) a block
 CENTRE_GRANULE = 32  # kCentreGranule: K4's centre is a multiple of it
+# K4 keeps the compact ring from this working set on: wfa_tpu's Pallas
+# kernel takes at most 64 (its bitmasks), where the whole ring stays.
+COMPACT_MIN_A = 65
 
 
-def smem_bytes(active_working_set: int, width: int, cigar: bool = False,
+def compact_slots(penalties: Penalties) -> tuple[int, int, int] | None:
+    """K4's compact ring for ``penalties``, None at A <= 64: (M's near
+    slots, each gap ring's slots, far mask).  M is read at d - x and
+    d - o - e; the nearer of the two, n = min(x, o+e), needs n + 1 slots, the
+    far one (A - 1 scores back) comes from global memory; where x = o + e
+    both are far and the near ring keeps only the score being computed
+    (1 slot).  I and D are read at d - e: e + 1 slots.  Far mask bit 0: M[d-x]
+    is far, bit 1: M[d-o-e]."""
+    A = penalties.active_working_set
+    if A < COMPACT_MIN_A:
+        return None
+    x, oe = penalties.x, penalties.o + penalties.e
+    far = (1 if x == A - 1 else 0) | (2 if oe == A - 1 else 0)
+    return (1 if x == oe else min(x, oe) + 1), penalties.e + 1, far
+
+
+def _layout(ring) -> tuple[int, int, int, int]:
+    """K4's ring for ``ring``, the penalties (or, at A <= 64, the working
+    set A): (A, rows a diagonal in shared memory, edge rows a diagonal
+    outside the centre, far-ring rows of all W).  The whole ring: 3A, 3A, 0;
+    the compact ring: near + 2 gap + 2 staging rows, 2 gap rows, A."""
+    if isinstance(ring, Penalties):
+        A = ring.active_working_set
+        slots = compact_slots(ring)
+        if slots is not None:
+            near, gap, _ = slots
+            return A, near + 2 * gap + 2, 2 * gap, A
+        return A, 3 * A, 3 * A, 0
+    if ring >= COMPACT_MIN_A:
+        raise ValueError(f"K4 at A={ring} takes the compact ring: pass the penalties")
+    return ring, 3 * ring, 3 * ring, 0
+
+
+def smem_bytes(ring, width: int, cigar: bool = False,
                ring_global: bool = False, centre: int = 0,
                nwords: int | None = None) -> int:
     """Shared memory of one block: the [3A, W] int32 ring (K4: only its
-    [3A, centre] centre), the per-slot window base and extent, the argmin
-    scratch, in CIGAR mode one choice row word per diagonal and, where the
-    block stages them (``nwords`` given: K4 always, K1/K2 when ``rows_fit``),
-    the two packed rows of ``nwords`` words, each with a zero word after it
-    (csrc smem_bytes)."""
-    A = active_working_set
-    ring = 3 * A * (centre if ring_global else width)
+    [rows, centre] centre, ``_layout``), the per-slot window base and
+    extent, the argmin scratch, in CIGAR mode one choice row word per
+    diagonal and, where the block stages them (``nwords`` given: K4 always,
+    K1/K2 when ``rows_fit``), the two packed rows of ``nwords`` words, each
+    with a zero word after it (csrc smem_bytes).  ``ring`` is the working
+    set A, or for K4 the penalties (required above A = 64)."""
+    if ring_global:
+        A, rows, _, _ = _layout(ring)
+    else:
+        A = ring.active_working_set if isinstance(ring, Penalties) else ring
+        rows = 3 * A
+    ring_ints = rows * (centre if ring_global else width)
     seq = 0 if nwords is None else 2 * (nwords + 1)
-    return 4 * (ring + 2 * A + _SCRATCH_INTS + (width if cigar else 0) + seq)
+    return 4 * (ring_ints + 2 * A + _SCRATCH_INTS + (width if cigar else 0) + seq)
 
 
 def rows_fit(active_working_set: int, width: int, nwords: int, cigar: bool,
@@ -75,30 +123,34 @@ def rows_fit(active_working_set: int, width: int, nwords: int, cigar: bool,
     return smem_bytes(active_working_set, width, cigar, nwords=nwords) <= smem
 
 
-def centre_width(active_working_set: int, width: int, nwords: int,
-                 cigar: bool, smem: int) -> int:
+def centre_width(ring, width: int, nwords: int, cigar: bool, smem: int) -> int:
     """K4's centre: the most lanes, a multiple of ``CENTRE_GRANULE`` and at
-    most W, whose [3A, C] ring fits ``smem`` beside the rest of the block's
-    shared memory (``smem_bytes``); exact K4 holds the diagonals around W/2
-    there, banded K4 the window's lanes 0 .. C - 1.  0 where not even one
-    granule fits: the whole ring is then in global memory.  Raises
-    ValueError only where the rest of the block (the per-slot window words,
-    the scratch, K2's row words and the packed rows) does not fit."""
-    A = active_working_set
-    fixed = smem_bytes(A, width, cigar, True, 0, nwords)
+    most W, whose ring rows (``_layout``: [3A, C], or the compact ring's)
+    fit ``smem`` beside the rest of the block's shared memory
+    (``smem_bytes``); exact K4 holds the diagonals around W/2 there, banded
+    K4 the window's lanes 0 .. C - 1.  0 where not even one granule fits:
+    the whole ring is then in global memory.  Raises ValueError only where
+    the rest of the block (the per-slot window words, the scratch, K2's row
+    words and the packed rows) does not fit.  ``ring``: as for
+    ``smem_bytes``."""
+    A, rows, _, _ = _layout(ring)
+    fixed = smem_bytes(ring, width, cigar, True, 0, nwords)
     if fixed > smem:
         raise ValueError(
             f"K4 at W={width}, A={A}, cigar={cigar}: the window words, "
             f"scratch and packed rows of {nwords} words need {fixed} bytes "
             f"of shared memory; a block has {smem}"
         )
-    return min(width, (smem - fixed) // (12 * A)
+    return min(width, (smem - fixed) // (4 * rows)
                // CENTRE_GRANULE * CENTRE_GRANULE)
 
 
-def ring_bytes(active_working_set: int, width: int, centre: int) -> int:
-    """K4's global edge buffer per alignment: [3A, W - centre] int32."""
-    return 4 * 3 * active_working_set * (width - centre)
+def ring_bytes(ring, width: int, centre: int) -> int:
+    """K4's global buffer per alignment: the edges of its rows outside the
+    centre, [3A, W - centre] int32, and for the compact ring M's far ring
+    [A, W] before the I and D edges [2 (e + 1), W - centre]."""
+    _, _, edge_rows, far_rows = _layout(ring)
+    return 4 * (far_rows * width + edge_rows * (width - centre))
 
 
 def max_width(active_working_set: int, smem: int, cigar: bool = False) -> int:
@@ -118,23 +170,60 @@ def smem_optin(device: torch.device) -> int:
     return out.value
 
 
-def _schedule_tensor(penalties, max_steps, score_limit, device):
-    """The kernels' [S, 7] int32 schedule on ``device`` (``_schedule_rows``)
-    for a launch on the current stream: the tensor is marked as used by that
-    stream, so that the cache dropping it cannot free it under a launch
-    still reading it."""
-    res = _schedule_rows(penalties, max_steps, score_limit, device)
+def _schedule_tensor(penalties, max_steps, score_limit, device, compact=False):
+    """The kernels' [S, 7] int32 schedule on ``device`` (``_schedule_rows``;
+    [S, 14] with ``compact``) for a launch on the current stream: the tensor
+    is marked as used by that stream, so that the cache dropping it cannot
+    free it under a launch still reading it."""
+    res = _schedule_rows(penalties, max_steps, score_limit, device, compact)
     if device.type == "cuda":
         res[0].record_stream(torch.cuda.current_stream(device))
     return res
 
 
+def compact_columns(penalties: Penalties, max_steps: int,
+                    score_limit: int | None) -> np.ndarray:
+    """The compact ring's 7 schedule columns, int32 [S, 7]: the near M slot
+    and the gap slot this score writes (d mod each ring's slots), the near
+    M parent's slot (0 where it is missing or both M parents are far), the
+    gap parent's slot (0 where missing), and the cone radius of each parent
+    (M[d-x], M[d-o-e], I/D[d-e]; -1 where missing), which masks its reads.
+    Slots of missing parents are 0 so that every address stays in the
+    ring."""
+    near, gap, far = compact_slots(penalties)
+    sched = build_schedule(penalties, max_steps, score_limit)
+    radius, _ = cone_radii(penalties, max_steps, score_limit)
+    d = sched.score.astype(np.int64)
+    x, oe, e = penalties.x, penalties.o + penalties.e, penalties.e
+    # Radius by score (score 0: radius 0); every parent that exists was
+    # computed, so its score is on the schedule or is 0.
+    by_score = np.zeros(int(d[-1]) + 1 if len(d) else 1, dtype=np.int64)
+    by_score[d] = radius
+
+    def parent_radius(slot, delta):
+        return np.where(slot >= 0, by_score[np.clip(d - delta, 0, None)], -1)
+
+    if far == 3:
+        near_in = np.zeros_like(d)
+    else:
+        n, slot = (x, sched.mx_slot) if far == 2 else (oe, sched.moe_slot)
+        near_in = np.where(slot >= 0, (d - n) % near, 0)
+    return np.stack([
+        d % near, d % gap, near_in,
+        np.where(sched.ide_slot >= 0, (d - e) % gap, 0),
+        parent_radius(sched.mx_slot, x), parent_radius(sched.moe_slot, oe),
+        parent_radius(sched.ide_slot, e),
+    ], axis=1).astype(np.int32)
+
+
 @functools.lru_cache(maxsize=64)
-def _schedule_rows(penalties, max_steps, score_limit, device):
+def _schedule_rows(penalties, max_steps, score_limit, device, compact=False):
     """The kernels' [S, 7] int32 schedule: score, out slot, the three parent
-    slots, the cone radius and the out slot's previous cone radius.  On a
-    CUDA device it is copied on the default stream and waited for, so that
-    a launch on any stream reads the whole table."""
+    slots, the cone radius and the out slot's previous cone radius; with
+    ``compact``, the compact ring's 7 columns after them
+    (``compact_columns``).  On a CUDA device it is copied on the default
+    stream and waited for, so that a launch on any stream reads the whole
+    table."""
     sched = build_schedule(penalties, max_steps, score_limit)
     radius, previous = cone_radii(penalties, max_steps, score_limit)
     rows = torch.stack([
@@ -142,7 +231,11 @@ def _schedule_rows(penalties, max_steps, score_limit, device):
             sched.score, sched.out_slot, sched.mx_slot,
             sched.moe_slot, sched.ide_slot, radius, previous,
         )
-    ], dim=1).to(torch.int32).contiguous()
+    ], dim=1).to(torch.int32)
+    if compact:
+        rows = torch.cat([rows, torch.from_numpy(
+            compact_columns(penalties, max_steps, score_limit))], dim=1)
+    rows = rows.contiguous()
     last = int(sched.score[-1]) if sched.num_steps else 0
     if device.type == "cuda":
         default = torch.cuda.default_stream(device)
@@ -169,8 +262,8 @@ def _placement(cfg: EngineConfig, nw: int, cigar: bool, centre: int | None,
         raise ValueError(f"rows {rows!r}: None, 'shared' or (not K4) 'global'")
     if cfg.ring_global:
         if centre is None:
-            return centre_width(A, W, nw, cigar, have), True
-        need = smem_bytes(A, W, cigar, True, centre, nw)
+            return centre_width(cfg.penalties, W, nw, cigar, have), True
+        need = smem_bytes(cfg.penalties, W, cigar, True, centre, nw)
         if centre % CENTRE_GRANULE or not 0 <= centre <= W or need > have:
             raise ValueError(
                 f"K4 centre {centre} at W={W}: 0 or a multiple of "
@@ -214,25 +307,36 @@ def blocks_per_sm(cfg: EngineConfig, nwords: int, device: torch.device, *,
     one SM of ``device`` holds at once, by threads, registers and shared
     memory (the CUDA occupancy query), and the threads of each block."""
     centre, shared = _placement(cfg, nwords, cigar, _centre, _rows, device)
+    near, gap, _ = _compact_args(cfg)
     lib = load_library("wfa_distance")
     out = (ctypes.c_int * 2)()
     check(lib, lib.wfa_blocks_per_sm(
-        int(cigar), cfg.band if cfg.banded else -1, centre, int(shared),
-        cfg.penalties.active_working_set, cfg.wf_width, nwords, _threads,
-        device.index, out,
+        int(cigar), cfg.band if cfg.banded else -1, centre, near, gap,
+        int(shared), cfg.penalties.active_working_set, cfg.wf_width, nwords,
+        _threads, device.index, out,
     ))
     return out[0], out[1]
 
 
+def _compact_args(cfg: EngineConfig) -> tuple[int, int, int]:
+    """The launch's compact-ring arguments (near slots, gap slots, far
+    mask): ``compact_slots`` for K4, (0, 0, 0) for the whole ring and K1/K2."""
+    slots = compact_slots(cfg.penalties) if cfg.ring_global else None
+    return slots or (0, 0, 0)
+
+
 def _edges(cfg: EngineConfig, B: int, centre: int, device) -> torch.Tensor | None:
-    """K4's [B, 3A, W - centre] edge buffer (each block resets its own
-    slab; a centre of 0: the whole ring), or None for the shared-memory ring
-    and for a centre of all W."""
-    if centre < 0 or centre == cfg.wf_width:
+    """K4's global buffer, ``ring_bytes`` an alignment: the whole ring's
+    [B, 3A, W - centre] edges (each block resets its own slab; a centre of
+    0: the whole ring), or the compact ring's far rings and I/D edges, which
+    nothing resets; None for the shared-memory ring and for a whole ring
+    with a centre of all W."""
+    compact = _compact_args(cfg)[0] > 0
+    if centre < 0 or (centre == cfg.wf_width and not compact):
         return None
-    A = cfg.penalties.active_working_set
-    return torch.empty((B, 3 * A, cfg.wf_width - centre), dtype=torch.int32,
-                       device=device)
+    ring = cfg.penalties if compact else cfg.penalties.active_working_set
+    return torch.empty(B * ring_bytes(ring, cfg.wf_width, centre) // 4,
+                       dtype=torch.int32, device=device)
 
 
 def align_batch_cuda(
@@ -256,8 +360,9 @@ def align_batch_cuda(
     B, nw, centre, shared = _check_batch(cfg, pat, txt, plen, tlen, valid, False,
                                          _centre, _rows)
     device = pat.device
+    compact = _compact_args(cfg)
     sched, num_steps, unfinished, _ = _schedule_tensor(
-        cfg.penalties, cfg.max_steps, cfg.score_limit, device
+        cfg.penalties, cfg.max_steps, cfg.score_limit, device, compact[0] > 0
     )
     dist = torch.empty(B, dtype=torch.int32, device=device)
     fin = torch.empty(B, dtype=torch.bool, device=device)
@@ -271,17 +376,21 @@ def align_batch_cuda(
         cfg.penalties.active_working_set, cfg.wf_width,
         cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(),
-        None if edges is None else edges.data_ptr(), centre, int(shared),
-        _threads, B, device.index, stream,
+        None if edges is None else edges.data_ptr(), centre, *compact,
+        int(shared), _threads, B, device.index, stream,
     ))
     _count("wfa_distance", cfg, shared)
     return {"distance": dist, "finished": fin}
 
 
 def _count(kernel: str, cfg: EngineConfig, rows_shared: bool) -> None:
-    """One launch of K1/K2 (by row placement) or K4 (exact or banded)."""
+    """One launch of K1/K2 (by row placement) or K4 (exact or banded; the
+    compact ring also as ``*_compact``)."""
     if cfg.ring_global:
-        _bump(kernel + ("_ring_banded" if cfg.banded else "_ring"))
+        keys = [kernel + ("_ring_banded" if cfg.banded else "_ring")]
+        if _compact_args(cfg)[0]:
+            keys.append(kernel + "_compact")
+        _bump(*keys)
     else:
         _bump(kernel, "rows_shared" if rows_shared else "rows_global")
 
@@ -317,8 +426,9 @@ def cigar_tables_cuda(
     B, nw, centre, shared = _check_batch(cfg, pat, txt, plen, tlen, valid, True,
                                          _centre, _rows)
     device = pat.device
+    compact = _compact_args(cfg)
     sched, num_steps, unfinished, last = _schedule_tensor(
-        cfg.penalties, cfg.max_steps, cfg.score_limit, device
+        cfg.penalties, cfg.max_steps, cfg.score_limit, device, compact[0] > 0
     )
     if last >= score_cap:
         raise ValueError(
@@ -347,7 +457,7 @@ def cigar_tables_cuda(
         cfg.penalties.active_working_set, W, cfg.band if cfg.banded else -1,
         dist.data_ptr(), fin.data_ptr(), words.data_ptr(), C,
         lo_ptr, lo_stride, None if edges is None else edges.data_ptr(),
-        centre, int(shared), _threads, B, device.index, stream,
+        centre, *compact, int(shared), _threads, B, device.index, stream,
     ))
     _count("wfa_cigar", cfg, shared)
     return res
