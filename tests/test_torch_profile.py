@@ -54,3 +54,27 @@ def test_device_trace_none_is_a_no_op(tmp_path, monkeypatch):
     with device_trace(None):
         ran = True
     assert ran and not list(tmp_path.iterdir())
+
+
+def test_cli_profile_holds_the_stage_ranges(tmp_path):
+    """Each ``align_pairs`` call's host stages are ``wfa.*`` ranges in the
+    trace, inside their call's range; tracing is off again after it."""
+    from wfa_tpu_torch.utils.timers import TRACE
+
+    was = TRACE.on
+    TRACE.disable()
+    try:
+        rc = main([
+            "-i", str(DATA / "wfa.utest.seq"), "-n", "4", "-g", "1,2,1",
+            "-e", "100", "--backend", "torch", "--profile", str(tmp_path),
+        ])
+        assert rc == 0 and not TRACE.on
+    finally:
+        TRACE.on = was
+    ranges = [e for e in _events(tmp_path / "trace.json")
+              if e["name"].startswith("wfa.")]
+    assert {e["name"] for e in ranges} == {"wfa.call", "wfa.plan", "wfa.tier"}
+    calls = [e for e in ranges if e["name"] == "wfa.call"]
+    for e in ranges:
+        assert any(c["tid"] == e["tid"] and c["ts"] <= e["ts"]
+                   and e["ts"] + e["dur"] <= c["ts"] + c["dur"] for c in calls)

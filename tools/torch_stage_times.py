@@ -18,17 +18,18 @@ distance and in CIGAR mode, on one of two workloads:
 commit unpacked with ``git archive``), to compare two versions in turns on
 the same card.
 
-Needs a CUDA device.  Each stage the aligner calls is wrapped with a host
-clock (with ``torch.cuda.synchronize()`` around the copies and the kernels,
-so device work is charged to the stage that launched it); one further call
-runs under ``torch.profiler`` for the device time by kernel and copy.
-Prints the card's name and power limit, then one JSON line.
+Needs a CUDA device.  Each timed call's stages are the program's own
+spans and counters (``utils.timers.TRACE``: presort, plan, slots, pack,
+launch, wait, decode, results, fallback, the time no stage covers, and
+the call's thread CPU time), taken as the call runs, with no
+``synchronize()`` inside it; one further call runs under
+``torch.profiler`` for the device time by kernel and copy.
+A ``--root`` without those spans gives each call's total alone.  Prints the
+card's name and power limit, then one JSON line.
 """
 from __future__ import annotations
 
 import argparse
-import collections
-import functools
 import json
 import subprocess
 import sys
@@ -54,43 +55,19 @@ def main() -> int:
     sys.path.insert(0, str(args.root.resolve()))
     import numpy as np
 
-    from wfa_tpu_torch import AlignmentOptions, Penalties, align_pairs, aligner, native
-    from wfa_tpu_torch.ops import engine_cuda
+    from wfa_tpu_torch import AlignmentOptions, Penalties, align_pairs
     from wfa_tpu_torch.utils.io import read_seq_file
     from wfa_tpu_torch.utils.synth import random_pairs
+    try:
+        from wfa_tpu_torch.utils.timers import TRACE
+    except ImportError:      # a --root from before the program's spans
+        TRACE = None
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     print(smi, flush=True)
-
-    stages: dict[str, float] = collections.defaultdict(float)
-
-    def timed(module, name, stage, device):
-        fn = getattr(module, name)
-
-        @functools.wraps(fn)
-        def wrapper(*a, **kw):
-            if device:
-                torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            if device:
-                torch.cuda.synchronize()
-            stages[stage] += (time.perf_counter() - t0) * 1e3
-            return out
-
-        setattr(module, name, wrapper)
-
-    timed(aligner, "divergence_scores", "presort", False)
-    timed(aligner, "_plan_tiers", "plan_tiers", False)
-    timed(aligner, "pack_batch", "pack", False)
-    timed(aligner, "batch_to_tensors", "h2d", True)
-    timed(engine_cuda, "align_batch_cuda", "kernel_k1_or_k4", True)
-    timed(engine_cuda, "align_cigar_cuda", "kernels_k2_or_k4_k3", True)
-    timed(native, "cigar_from_ops_batch", "decode", False)
-    timed(native, "cpu_align_batch", "cpu_fallback", False)
 
     data = ROOT / "tests" / "data"
     pen = Penalties(2, 3, 1)
@@ -117,15 +94,25 @@ def main() -> int:
         align_pairs(pats[:8], txts[:8], opts)          # warm-up
         runs = []
         for _ in range(args.reps):
-            stages.clear()
+            if TRACE is not None:
+                TRACE.enable()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = align_pairs(pats, txts, opts)
-            torch.cuda.synchronize()
-            total = (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter()
+            if TRACE is not None:
+                TRACE.disable()
             assert all(r.finished_on_accelerator for r in res)
-            row = {"total_ms": total, **dict(stages)}
-            row["rest_ms"] = total - sum(stages.values())
+            row = {"total_ms": (t1 - t0) * 1e3}
+            if TRACE is not None:
+                (call,) = TRACE.calls(t0, t1)
+                row["stages"] = {
+                    name: {"n": st["n"], "wall_ms": st["wall"] * 1e3,
+                           "self_ms": st["self"] * 1e3}
+                    for name, st in call["stages"].items()}
+                row["other_ms"] = call["other"] * 1e3
+                row["cpu_ms"] = call["cpu"] * 1e3
+                row["counters"] = call["counters"]
             runs.append(row)
         with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,

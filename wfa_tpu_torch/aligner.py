@@ -46,6 +46,7 @@ from .types import MAX_SEQ_LEN, AlignmentResult
 from .utils.cpu_wfa import align_one_py
 from .utils.logger import LOG
 from .utils.presort import MIN_PRESORT_TIER, divergence_scores
+from .utils.timers import TRACE
 
 BACKENDS = ("auto", "torch", "cuda")
 _LANE = 128
@@ -295,85 +296,89 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
     ``_pending_depth`` chunks are in flight: before a chunk past it is
     packed, the oldest is decoded.  Returns the tier's chunks, that depth
     and the most chunks that were in flight at once."""
-    mesh = []
-    if device is None:
-        mesh = parallel_mesh.data_mesh() if opts.data_parallel else []
-        if len(mesh) < 2:
-            mesh = []
-            device = torch.device("cuda", torch.cuda.current_device())
-    if smem is None:
-        smem = min(engine_cuda.smem_optin(d) for d in mesh or [device])
-    ndev = max(len(mesh), 1)
-    cfg, full_window, cert_bound, score_cap = _tier_geometry_cuda(
-        plan, opts, max_error, band, smem
-    )
-    cigar = opts.compute_cigar
-    # K4's global ring: what the part of the ring in shared memory leaves
-    # over (the compact ring: M's far ring besides).  K4 stages the packed
-    # rows; K1/K2 where they fit beside the ring.
-    pen = opts.penalties
-    A = pen.active_working_set
-    ring = 0
-    rows = "shared"
-    if cfg.ring_global:
-        centre = engine_cuda.centre_width(pen, cfg.wf_width, plan.nwords, cigar,
-                                          smem)
-        ring = engine_cuda.ring_bytes(pen, cfg.wf_width, centre)
-    elif not engine_cuda.rows_fit(A, cfg.wf_width, plan.nwords, cigar, smem):
-        rows = "global"
-    cols = 2
-    if cigar:
-        tb_cfg = TracebackConfig(
-            penalties=opts.penalties, wf_width=cfg.wf_width,
-            score_cap=score_cap, banded=cfg.banded,
-            lo_pad=engine_torch.lo_pad(score_cap) if cfg.banded else 0,
+    with TRACE.span("plan"):
+        mesh = []
+        if device is None:
+            mesh = parallel_mesh.data_mesh() if opts.data_parallel else []
+            if len(mesh) < 2:
+                mesh = []
+                device = torch.device("cuda", torch.cuda.current_device())
+        if smem is None:
+            smem = min(engine_cuda.smem_optin(d) for d in mesh or [device])
+        ndev = max(len(mesh), 1)
+        cfg, full_window, cert_bound, score_cap = _tier_geometry_cuda(
+            plan, opts, max_error, band, smem
         )
-        call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width, ring)
-        cols = 4 + tb_cfg.opw
-    else:
-        call_b = _distance_call_batch(opts, ring)
-    step = ndev * call_b
-    n_chunks = -(-len(idxs) // step)
-    slot_rows = min(step, len(idxs))
-    depth = _pending_depth(
-        n_chunks, slot_rows * (4 * (2 * plan.nwords + 2 + cols) + 1),
-        opts.memory_budget_bytes,
-    )
-    LOG.debug(
-        "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s rows=%s "
-        "score_cap=%d call_b=%d chunks=%d depth=%d full_window=%s "
-        "cert_bound=%d devices=%d",
-        plan.tier, len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, rows,
-        score_cap, call_b, n_chunks, depth, full_window, cert_bound, ndev,
-    )
-    on_card = any(d.type == "cuda" for d in mesh or [device])
+        cigar = opts.compute_cigar
+        # K4's global ring: what the part of the ring in shared memory leaves
+        # over (the compact ring: M's far ring besides).  K4 stages the packed
+        # rows; K1/K2 where they fit beside the ring.
+        pen = opts.penalties
+        A = pen.active_working_set
+        ring = 0
+        rows = "shared"
+        if cfg.ring_global:
+            centre = engine_cuda.centre_width(pen, cfg.wf_width, plan.nwords, cigar,
+                                              smem)
+            ring = engine_cuda.ring_bytes(pen, cfg.wf_width, centre)
+        elif not engine_cuda.rows_fit(A, cfg.wf_width, plan.nwords, cigar, smem):
+            rows = "global"
+        cols = 2
+        if cigar:
+            tb_cfg = TracebackConfig(
+                penalties=opts.penalties, wf_width=cfg.wf_width,
+                score_cap=score_cap, banded=cfg.banded,
+                lo_pad=engine_torch.lo_pad(score_cap) if cfg.banded else 0,
+            )
+            call_b = _cigar_call_batch(opts, score_cap, cfg.wf_width, ring)
+            cols = 4 + tb_cfg.opw
+        else:
+            call_b = _distance_call_batch(opts, ring)
+        step = ndev * call_b
+        n_chunks = -(-len(idxs) // step)
+        slot_rows = min(step, len(idxs))
+        slot_bytes = slot_rows * (4 * (2 * plan.nwords + 2 + cols) + 1)
+        depth = _pending_depth(n_chunks, slot_bytes, opts.memory_budget_bytes)
+        LOG.debug(
+            "cuda tier=%d pairs=%d W=%d band=%d cigar=%s ring_global=%s rows=%s "
+            "score_cap=%d call_b=%d chunks=%d depth=%d full_window=%s "
+            "cert_bound=%d devices=%d",
+            plan.tier, len(idxs), cfg.wf_width, band, cigar, cfg.ring_global, rows,
+            score_cap, call_b, n_chunks, depth, full_window, cert_bound, ndev,
+        )
+        on_card = any(d.type == "cuda" for d in mesh or [device])
     # Page-locked allocations only here, before the first launch: one
     # between two launches would serialise them.
-    slots = [_HostSlot(slot_rows, plan.nwords, cols, on_card)
-             for _ in range(depth)]
+    with TRACE.span("slots"):
+        slots = [_HostSlot(slot_rows, plan.nwords, cols, on_card)
+                 for _ in range(depth)]
+    if on_card:
+        TRACE.count("pinned_bytes", depth * slot_bytes)
 
     def dispatch(slot, pats, txts):
         """Phase 1 for one chunk; returns a function that waits for the
         chunk's copy back and gives its [n, cols] int32 rows."""
-        host = slot.fill(pats, txts, plan.nwords)
+        with TRACE.span("pack"):
+            host = slot.fill(pats, txts, plan.nwords)
         n = len(pats)
-        if mesh:
+        with TRACE.span("launch"):
+            if mesh:
+                if cigar:
+                    return parallel_mesh.align_cigar_fused_sharded(
+                        cfg, tb_cfg, mesh, *host, wait=False)
+                finish = parallel_mesh.align_batch_pallas_sharded(
+                    cfg, mesh, *host, wait=False)
+                return lambda: _distance_rows(finish())
+            args = tuple(t.to(device, non_blocking=True) for t in host)
             if cigar:
-                return parallel_mesh.align_cigar_fused_sharded(
-                    cfg, tb_cfg, mesh, *host, wait=False)
-            finish = parallel_mesh.align_batch_pallas_sharded(
-                cfg, mesh, *host, wait=False)
-            return lambda: _distance_rows(finish())
-        args = tuple(t.to(device, non_blocking=True) for t in host)
-        if cigar:
-            out = engine_cuda.align_cigar_cuda(cfg, tb_cfg, *args)
-        else:
-            out = _distance_rows(engine_cuda.align_batch_cuda(cfg, *args))
-        slot.out[:n].copy_(out, non_blocking=True)
-        if device.type != "cuda":
-            return lambda: slot.out[:n]
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(device))
+                out = engine_cuda.align_cigar_cuda(cfg, tb_cfg, *args)
+            else:
+                out = _distance_rows(engine_cuda.align_batch_cuda(cfg, *args))
+            slot.out[:n].copy_(out, non_blocking=True)
+            if device.type != "cuda":
+                return lambda: slot.out[:n]
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(device))
 
         def wait():
             done.synchronize()
@@ -382,35 +387,38 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
 
     def consume(chunk, pats, txts, wait) -> None:
         """Phase 2 for one chunk: decode and place its results."""
-        arr = wait().numpy()
+        with TRACE.span("wait"):
+            arr = wait().numpy()
         dist = arr[:, 0]
         fin = arr[:, 1] != 0
         cigars: list[str | None] = [None] * len(chunk)
         if cigar:
             n_ops = arr[:, 2]
             ops_w = np.ascontiguousarray(arr[:, 4:])
-            if native.available():
-                cigars, _ = native.cigar_from_ops_batch(
-                    ops_w, n_ops, fin, pats, txts
-                )
-            else:
-                cigars = [
-                    recover_cigar_from_stream(ops_w[b], int(n_ops[b]),
-                                              pats[b], txts[b])
-                    if fin[b] and n_ops[b] >= 0 else None
-                    for b in range(len(chunk))
-                ]
-        for b, i in enumerate(chunk):
-            ok = fin[b] and (full_window or int(dist[b]) < cert_bound)
-            if cigar and ok and cigars[b] is None:
-                ok = False  # corrupt walk -> CPU fallback
-            if ok:
-                results[i] = AlignmentResult(
-                    error=int(dist[b]), cigar=cigars[b] or "",
-                    finished_on_accelerator=True,
-                )
-            else:
-                need_cpu[i] = True
+            with TRACE.span("decode"):
+                if native.available():
+                    cigars, _ = native.cigar_from_ops_batch(
+                        ops_w, n_ops, fin, pats, txts
+                    )
+                else:
+                    cigars = [
+                        recover_cigar_from_stream(ops_w[b], int(n_ops[b]),
+                                                  pats[b], txts[b])
+                        if fin[b] and n_ops[b] >= 0 else None
+                        for b in range(len(chunk))
+                    ]
+        with TRACE.span("results"):
+            for b, i in enumerate(chunk):
+                ok = fin[b] and (full_window or int(dist[b]) < cert_bound)
+                if cigar and ok and cigars[b] is None:
+                    ok = False  # corrupt walk -> CPU fallback
+                if ok:
+                    results[i] = AlignmentResult(
+                        error=int(dist[b]), cigar=cigars[b] or "",
+                        finished_on_accelerator=True,
+                    )
+                else:
+                    need_cpu[i] = True
 
     pending = []
     peak = 0
@@ -426,6 +434,9 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
         peak = max(peak, len(pending))
     for item in pending:
         consume(*item)
+    TRACE.count("chunks", n_chunks)
+    TRACE.count("depth", depth)
+    TRACE.count("peak", peak)
     return {"chunks": n_chunks, "depth": depth, "peak": peak}
 
 
@@ -540,6 +551,11 @@ def align_pairs(
     options: AlignmentOptions | None = None,
 ) -> list[AlignmentResult]:
     """Align a batch of (pattern, text) pairs; the functional core API."""
+    with TRACE.span("call"):
+        return _align_pairs(patterns, texts, options)
+
+
+def _align_pairs(patterns, texts, options) -> list[AlignmentResult]:
     opts = options or AlignmentOptions()
     backend = _resolve_backend(opts.backend)
     run_tier = _run_tier_cuda if backend == "cuda" else _run_tier_torch
@@ -549,6 +565,7 @@ def align_pairs(
         return []
     if len(texts) != n:
         raise ValueError("patterns and texts must have equal length")
+    TRACE.count("pairs", n)
 
     max_error = opts.max_error or default_max_error(
         len(patterns[0]), len(texts[0]), pen
@@ -576,21 +593,25 @@ def align_pairs(
         hints = None
         dev_lens = lens[run_idx]
         if dev_lens.size and int(dev_lens.max()) >= MIN_PRESORT_TIER:
-            if opts.probe_order and backend == "cuda":
-                hints = _probe_distances(
-                    patterns, texts, run_idx, pen, err, band,
-                    torch.device("cuda", torch.cuda.current_device()),
-                )
-            else:
-                hints = divergence_scores(
-                    [patterns[i] for i in run_idx],
-                    [texts[i] for i in run_idx],
-                    dev_lens,
-                )
-        for plan in _plan_tiers(dev_lens, opts, err, hints):
+            with TRACE.span("presort"):
+                if opts.probe_order and backend == "cuda":
+                    hints = _probe_distances(
+                        patterns, texts, run_idx, pen, err, band,
+                        torch.device("cuda", torch.cuda.current_device()),
+                    )
+                else:
+                    hints = divergence_scores(
+                        [patterns[i] for i in run_idx],
+                        [texts[i] for i in run_idx],
+                        dev_lens,
+                    )
+        with TRACE.span("plan"):
+            plans = _plan_tiers(dev_lens, opts, err, hints)
+        for plan in plans:
             idxs = [run_idx[j] for j in plan.indices]
-            run_tier(patterns, texts, idxs, plan, opts, err, band,
-                     results, need_cpu)
+            with TRACE.span("tier"):
+                run_tier(patterns, texts, idxs, plan, opts, err, band,
+                         results, need_cpu)
 
     # On-device retry ladder (wfa_tpu/aligner.py:734-767): unfinished
     # ACGT-clean pairs get further device passes at a doubled error budget,
@@ -608,6 +629,8 @@ def align_pairs(
             )
             for i in todo:
                 need_cpu[i] = False
+            TRACE.count("retry_passes")
+            TRACE.count("retry_pairs", len(todo))
         _device_pass(todo, attempt_err)
         failed = [i for i in todo if need_cpu[i]]
         nxt = min(attempt_err * 2, err_cap)
@@ -622,21 +645,24 @@ def align_pairs(
 
     # CPU fallback pass (wfa_tpu/aligner.py:769-808).
     cpu_idx = np.flatnonzero(need_cpu)
+    TRACE.count("pairs_on_card", n - int(cpu_idx.size))
     cigar = opts.compute_cigar
     if cpu_idx.size and opts.cpu_fallback:
         LOG.debug("CPU fallback for %d/%d pairs", cpu_idx.size, n)
+        TRACE.count("fallback_pairs", int(cpu_idx.size))
         cpats = [patterns[i] for i in cpu_idx]
         ctxts = [texts[i] for i in cpu_idx]
-        if have_native:
-            # WFA-adaptive on the CPU iff the device ran banded.
-            dist, cigs, _ = native.cpu_align_batch(
-                cpats, ctxts, pen, np.ones(len(cpats), dtype=np.int8), cigar,
-                adaptive=opts.banded,
-            )
-        else:
-            found = [align_one_py(p, t, pen, cigar) for p, t in zip(cpats, ctxts)]
-            dist = [d for d, _ in found]
-            cigs = [c for _, c in found]
+        with TRACE.span("fallback"):
+            if have_native:
+                # WFA-adaptive on the CPU iff the device ran banded.
+                dist, cigs, _ = native.cpu_align_batch(
+                    cpats, ctxts, pen, np.ones(len(cpats), dtype=np.int8), cigar,
+                    adaptive=opts.banded,
+                )
+            else:
+                found = [align_one_py(p, t, pen, cigar) for p, t in zip(cpats, ctxts)]
+                dist = [d for d, _ in found]
+                cigs = [c for _, c in found]
         for j, i in enumerate(cpu_idx):
             results[i] = AlignmentResult(
                 error=int(dist[j]), cigar=(cigs[j] or "") if cigar else "",

@@ -15,6 +15,7 @@ and writes ``OUTPUT.{process index}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import sys
 import time
 
@@ -30,7 +31,7 @@ from .utils.cpu_wfa import align_one_py
 from .utils.device_query import describe
 from .utils.io import SequenceBatch, read_fasta_pair, read_seq_file, write_alignments
 from .utils.logger import LOG, set_verbosity
-from .utils.timers import device_trace, timed
+from .utils.timers import TRACE, device_trace, timed
 from .utils.verification import affine_score, check_cigar
 
 
@@ -131,6 +132,27 @@ def _check(args, batch: SequenceBatch, results, pen: Penalties, banded: bool) ->
         )
 
 
+def _log_stages(calls: list[dict]) -> None:
+    """One line per host stage of the run's ``align_pairs`` calls, one for
+    the time no leaf stage covers, and one of the calls' counters."""
+    stages: dict[str, dict] = {}
+    counters: collections.Counter = collections.Counter()
+    for c in calls:
+        for name, st in c["stages"].items():
+            tot = stages.setdefault(name, {"calls": 0, "n": 0, "wall": 0.0, "self": 0.0})
+            tot["calls"] += 1
+            for key in ("n", "wall", "self"):
+                tot[key] += st[key]
+        counters.update(c["counters"])
+    for name, st in stages.items():
+        LOG.info("stage %s: %d of %d calls, %d spans, wall %.3f ms, self %.3f ms",
+                 name, st["calls"], len(calls), st["n"], st["wall"] * 1e3,
+                 st["self"] * 1e3)
+    LOG.info("stage other: wall %.3f ms; the calls' thread cpu %.3f ms",
+             sum(c["other"] for c in calls) * 1e3, sum(c["cpu"] for c in calls) * 1e3)
+    LOG.info("counters: %s", " ".join(f"{k}={v}" for k, v in sorted(counters.items())))
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.verbose:
@@ -215,13 +237,16 @@ def main(argv: list[str] | None = None) -> int:
     )
 
     t0 = time.time()
-    with device_trace(args.profile):
+    t_run = time.perf_counter()
+    with TRACE.enabled(args.verbose), device_trace(args.profile):
         results = align_pairs_pipelined(batch.patterns, batch.texts, opts)
     wall = time.time() - t0
     print(
         f"Alignment computed. Wall time: {wall:.3f}s "
         f"({len(results) / wall:.3f} alignments per second)"
     )
+    if args.verbose:
+        _log_stages(TRACE.calls(t_run, time.perf_counter()))
 
     if args.check:
         _check(args, batch, results, pen, opts.banded)

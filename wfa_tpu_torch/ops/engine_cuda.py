@@ -39,6 +39,7 @@ import torch
 
 from ..schedule import build_schedule, cone_radii
 from ..types import Penalties
+from ..utils.timers import TRACE
 from . import engine_torch, traceback_torch
 from ._build import check, check_inputs, load_library
 from .engine_torch import EngineConfig
@@ -224,6 +225,7 @@ def _schedule_rows(penalties, max_steps, score_limit, device, compact=False):
     (``compact_columns``).  On a CUDA device it is copied on the default
     stream and waited for, so that a launch on any stream reads the whole
     table."""
+    TRACE.count("schedule_builds")
     sched = build_schedule(penalties, max_steps, score_limit)
     radius, previous = cone_radii(penalties, max_steps, score_limit)
     rows = torch.stack([
