@@ -7,6 +7,7 @@ apart; under ``device_trace`` the ``wfa.*`` ranges nest in the call's."""
 import dataclasses
 import json
 import logging
+import re
 import threading
 
 import numpy as np
@@ -16,6 +17,7 @@ import torch
 import wfa_tpu_torch
 from wfa_tpu_torch import AlignmentOptions, Penalties, aligner
 from wfa_tpu_torch.cli import main
+from wfa_tpu_torch.ops import _build
 from wfa_tpu_torch.pipeline import align_pairs_pipelined
 from wfa_tpu_torch.utils.presort import MIN_PRESORT_TIER
 from wfa_tpu_torch.utils.synth import random_pairs
@@ -103,8 +105,11 @@ def test_on_one_record_a_call():
         assert call["other"] == pytest.approx(call["stages"]["call"]["self"])
         assert call["stages"]["call"]["n"] == 1
         assert {"presort", "plan", "tier"} <= set(call["stages"])
-    assert calls[0]["counters"] == {
-        "pairs": 3, "pairs_on_card": sum(r.finished_on_accelerator for r in res)}
+    counters = dict(calls[0]["counters"])
+    assert counters.pop("presort_threads") >= 1
+    assert counters == {
+        "pairs": 3, "pairs_on_card": sum(r.finished_on_accelerator for r in res),
+        "presort_native": 3}
     # The window: only calls wholly inside it.
     first, second = calls
     assert [c["id"] for c in TRACE.calls(first["start"], second["end"])] == [
@@ -131,6 +136,35 @@ def test_retries_and_fallback_are_counted():
     assert c["retry_passes"] == 1 and 1 <= c["retry_pairs"] < 12
     assert call["stages"]["fallback"]["n"] == 1
     assert call["stages"]["tier"]["n"] >= 2      # the first pass and the retry
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "fallback"])
+def test_presort_counters(monkeypatch, native):
+    """``presort_native`` counts the long pairs of a call, those the
+    presort scores natively, and reads 0 where the Python scan serves;
+    ``presort_threads`` is the native scan's thread count, a level that
+    the call's passes do not add up."""
+    long_pats, long_txts = _long_pairs(3)
+    pats, txts = _pairs(4, 90, 110, 0.05, 7)
+    pats, txts = long_pats + pats, long_txts + txts
+    if not native:
+        monkeypatch.setattr(_build, "load_presort", lambda: None)
+    elif _build.load_presort() is None:
+        pytest.skip("the presort's scan could not be built here (no g++)")
+    TRACE.enable()
+    wfa_tpu_torch.align_pairs(pats, txts, BANDED)
+    (call,) = TRACE.calls()
+    c = call["counters"]
+    assert c["presort_native"] == (3 if native else 0)
+    assert call["stages"]["presort"]["n"] == 1
+    if native:
+        assert c["presort_threads"] >= 1 and "presort_threads" in TRACE.levels
+    else:
+        assert "presort_threads" not in c
+    with TRACE.span("call"):
+        TRACE.level("presort_threads", 3)
+        TRACE.level("presort_threads", 2)
+    assert TRACE.calls()[-1]["counters"] == {"presort_threads": 3}
 
 
 def _chunk_loop(monkeypatch, cigar, length=(600, 900), max_error=150):
@@ -234,4 +268,7 @@ def test_cli_verbose_logs_each_stage(tmp_path, caplog):
     for stage in ("call", "presort", "plan", "tier"):
         assert any(ln.startswith(f"stage {stage}: 1 of 1 calls") for ln in lines), lines
     assert any(ln.startswith("stage other: wall") and "cpu" in ln for ln in lines)
-    assert "counters: pairs=2 pairs_on_card=2" in lines
+    (counters,) = [ln for ln in lines if ln.startswith("counters: ")]
+    assert re.fullmatch(
+        r"counters: pairs=2 pairs_on_card=2 presort_native=2 presort_threads=[1-9]\d*",
+        counters), counters

@@ -45,7 +45,8 @@ from .traceback import recover_cigar, recover_cigar_from_stream
 from .types import MAX_SEQ_LEN, AlignmentResult
 from .utils.cpu_wfa import align_one_py
 from .utils.logger import LOG
-from .utils.presort import MIN_PRESORT_TIER, divergence_scores
+from .utils.presort import MIN_PRESORT_TIER
+from .utils.presort_scan import divergence_scores
 from .utils.timers import TRACE
 
 BACKENDS = ("auto", "torch", "cuda")
@@ -589,7 +590,8 @@ def _align_pairs(patterns, texts, options) -> list[AlignmentResult]:
     def _device_pass(run_idx: list[int], err: int) -> None:
         # Cost-ordered tiling for long reads: distances measured on the
         # card at a narrow band (probe_order), else the host's divergence
-        # estimate (utils/presort.py).
+        # estimate (utils/presort.py), scanned natively where the library
+        # loads (utils/presort_scan.py).
         hints = None
         dev_lens = lens[run_idx]
         if dev_lens.size and int(dev_lens.max()) >= MIN_PRESORT_TIER:

@@ -134,7 +134,8 @@ def _check(args, batch: SequenceBatch, results, pen: Penalties, banded: bool) ->
 
 def _log_stages(calls: list[dict]) -> None:
     """One line per host stage of the run's ``align_pairs`` calls, one for
-    the time no leaf stage covers, and one of the calls' counters."""
+    the time no leaf stage covers, and one of the calls' counters (summed
+    over the calls; a level, ``TRACE.levels``, at its highest)."""
     stages: dict[str, dict] = {}
     counters: collections.Counter = collections.Counter()
     for c in calls:
@@ -143,7 +144,9 @@ def _log_stages(calls: list[dict]) -> None:
             tot["calls"] += 1
             for key in ("n", "wall", "self"):
                 tot[key] += st[key]
-        counters.update(c["counters"])
+        for name, n in c["counters"].items():
+            counters[name] = (max(counters[name], n) if name in TRACE.levels
+                              else counters[name] + n)
     for name, st in stages.items():
         LOG.info("stage %s: %d of %d calls, %d spans, wall %.3f ms, self %.3f ms",
                  name, st["calls"], len(calls), st["n"], st["wall"] * 1e3,

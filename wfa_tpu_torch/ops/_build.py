@@ -12,7 +12,8 @@ registers, shared memory, spills) is kept beside each as a ``.log`` file.
 fallback, CIGAR decoding) from the repository's ``native/*.cpp`` into
 ``build/torch_native/``, once per process: ``make -C native`` with its own
 flags, and where the host compiler has no OpenMP runtime, the same sources
-built serially.
+built serially.  ``load_presort`` builds and loads the presort's scan,
+``csrc/presort_scan.cpp``, into the same directory in the same two ways.
 """
 from __future__ import annotations
 
@@ -42,9 +43,17 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The host compiler's flags for the presort's scan (native/Makefile's).
+PRESORT_SOURCE = "presort_scan.cpp"
+HOST_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
+                 "-Wall", "-Wextra")
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _native_ok: bool | None = None
+# The presort's scan: None until first asked for, then the library or False.
+_presort: ctypes.CDLL | bool | None = None
+_presort_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -205,3 +214,65 @@ def ensure_native() -> bool:
                 build_native_serial(_NATIVE_DIR)
             _native_ok = native_library_path().exists()
         return _native_ok
+
+
+def build_presort(openmp: bool) -> Path | None:
+    """Compile ``csrc/presort_scan.cpp`` unless built already, into a library
+    named by a hash of the source and the flags: with ``-fopenmp``, or
+    serially against ``csrc/serial_omp/omp.h``.  None where the compiler
+    fails (its output is kept beside the library as ``.log``)."""
+    flags = HOST_CXXFLAGS + (("-fopenmp",) if openmp else
+                             ("-Wno-unknown-pragmas", "-I", str(_CSRC / "serial_omp")))
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update((_CSRC / PRESORT_SOURCE).read_bytes())
+    kind = "omp" if openmp else "serial"
+    so = _NATIVE_DIR / f"libpresort_scan_{kind}_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    _NATIVE_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        proc = subprocess.run(
+            ["g++", *flags, "-o", str(tmp), str(_CSRC / PRESORT_SOURCE)],
+            capture_output=True, text=True, timeout=300,
+        )
+    except OSError as exc:                  # no g++ at all
+        so.with_suffix(".log").write_text(str(exc))
+        return None
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        return None
+    os.replace(tmp, so)
+    return so
+
+
+def bind_presort(path: Path) -> ctypes.CDLL:
+    """Load a build of the presort's scan with its C signature; raises
+    ``OSError`` where it does not load."""
+    lib = ctypes.CDLL(str(path))
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.presort_scan.restype = ctypes.c_int
+    lib.presort_scan.argtypes = [p, p, p, p, p, i64, i64, p]
+    return lib
+
+
+def load_presort() -> ctypes.CDLL | None:
+    """The presort's scan, built and loaded once per process: the OpenMP
+    build, else the serial one; None where neither builds and loads.  A
+    failure here touches neither the CUDA libraries nor the native host
+    library."""
+    global _presort
+    with _presort_lock:
+        if _presort is None:
+            _presort = False
+            for openmp in (True, False):
+                so = build_presort(openmp)
+                if so is None:
+                    continue
+                try:
+                    _presort = bind_presort(so)
+                    break
+                except OSError:             # built, but its runtime is missing
+                    continue
+        return _presort or None

@@ -1,7 +1,9 @@
-// Stand-in for <omp.h> when wfa_tpu's native host library is built without
-// OpenMP (a host compiler with no OpenMP runtime): the library's
-// `#pragma omp` loops then run serially, and this is the one OpenMP call it
-// makes.  Used only by wfa_tpu_torch/ops/_build.py::ensure_native.
+// Stand-in for <omp.h> when a host library is built without OpenMP (a host
+// compiler with no OpenMP runtime): its `#pragma omp` loops then run
+// serially, on one thread, as these calls report.  Used by the serial builds
+// of wfa_tpu_torch/ops/_build.py: wfa_tpu's native host library
+// (build_native_serial) and the presort's scan (presort_scan.cpp).
 #pragma once
 
 static inline int omp_get_max_threads(void) { return 1; }
+static inline int omp_get_num_threads(void) { return 1; }

@@ -165,17 +165,20 @@ class Trace:
     record with a fresh id, which also takes the thread's CPU seconds over
     the call; other spans outside a call are not recorded.
     ``TRACE.count(name, n)`` adds to a counter of the call open on this
-    thread.  While on, each span is also a ``record_function`` range
-    ``wfa.<name>`` where a profiler is recording, so that under
-    ``torch.profiler`` the stages share a clock with the card's kernels and
-    copies.  Off (the default), a span site costs one flag test and returns
-    a shared no-op."""
+    thread; ``TRACE.level(name, n)`` raises one to ``n`` where ``n`` is
+    larger (a level, such as a thread count, that a call's passes do not
+    add up; ``levels`` names them).  While on, each span is also a
+    ``record_function`` range ``wfa.<name>`` where a profiler is recording,
+    so that under ``torch.profiler`` the stages share a clock with the
+    card's kernels and copies.  Off (the default), a span site costs one
+    flag test and returns a shared no-op."""
 
     def __init__(self, max_calls: int = 4096) -> None:
         self.on = False
         self._done: collections.deque[_Call] = collections.deque(maxlen=max_calls)
         self._local = threading.local()
         self._ids = itertools.count(1)
+        self.levels: set[str] = set()
 
     def enable(self) -> None:
         self.on = True
@@ -215,6 +218,15 @@ class Trace:
         stack = self._stack()
         if stack:
             stack[0].call.counters[name] += n
+
+    def level(self, name: str, n: int) -> None:
+        if not self.on:
+            return
+        self.levels.add(name)
+        stack = self._stack()
+        if stack:
+            counters = stack[0].call.counters
+            counters[name] = max(counters[name], n)
 
     def calls(self, t0: float = float("-inf"), t1: float = float("inf")) -> list[dict]:
         """The finished calls that lie wholly inside [t0, t1]
