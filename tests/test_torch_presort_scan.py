@@ -155,7 +155,7 @@ def _case(name):
 
 @pytest.fixture(scope="module")
 def lib():
-    found = _build.load_presort()
+    found = _build.load_host(_build.PRESORT_SOURCE)
     if found is None:
         pytest.skip("the presort's scan could not be built here (no g++)")
     return found
@@ -176,10 +176,10 @@ def test_native_scan_equals_python(lib, name):
 def test_serial_build_equals_openmp(lib):
     builds = {}
     for openmp in (True, False):
-        so = _build.build_presort(openmp)
+        so = _build.build_host(_build.PRESORT_SOURCE, openmp)
         if so is None:
             pytest.skip(f"the {'OpenMP' if openmp else 'serial'} build fails here")
-        builds[openmp] = _build.bind_presort(so)
+        builds[openmp] = _build.bind_host(_build.PRESORT_SOURCE, so)
     for name in ("hifi", "random10k", "mixed"):
         pats, txts, lens = _case(name)
         omp, _ = presort_scan.scan(builds[True], pats, txts, lens)
@@ -208,7 +208,7 @@ def test_falls_back_to_python(lib, monkeypatch):
     as_arrays = [bytearray(p) for p in pats]
     np.testing.assert_array_equal(
         presort_scan.divergence_scores(as_arrays, txts, lens), want)
-    monkeypatch.setattr(_build, "load_presort", lambda: None)
+    monkeypatch.setattr(_build, "load_host", lambda source: None)
     np.testing.assert_array_equal(presort_scan.divergence_scores(pats, txts, lens), want)
 
 
@@ -237,6 +237,6 @@ def test_align_pairs_equal_with_and_without_the_library(lib, monkeypatch):
     opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=400, band=25,
                             band_width=64, backend="torch", compute_cigar=True)
     native = wfa_tpu_torch.align_pairs(pats, txts, opts)
-    monkeypatch.setattr(_build, "load_presort", lambda: None)
+    monkeypatch.setattr(_build, "load_host", lambda source: None)
     fallback = wfa_tpu_torch.align_pairs(pats, txts, opts)
     assert native == fallback

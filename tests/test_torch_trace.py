@@ -148,8 +148,8 @@ def test_presort_counters(monkeypatch, native):
     pats, txts = _pairs(4, 90, 110, 0.05, 7)
     pats, txts = long_pats + pats, long_txts + txts
     if not native:
-        monkeypatch.setattr(_build, "load_presort", lambda: None)
-    elif _build.load_presort() is None:
+        monkeypatch.setattr(_build, "load_host", lambda source: None)
+    elif _build.load_host(_build.PRESORT_SOURCE) is None:
         pytest.skip("the presort's scan could not be built here (no g++)")
     TRACE.enable()
     wfa_tpu_torch.align_pairs(pats, txts, BANDED)
@@ -210,6 +210,8 @@ def test_chunk_loop_spans_and_counters(monkeypatch, cigar):
     counters = call["counters"]
     assert {k: counters[k] for k in ("chunks", "depth", "peak")} == stats[0]
     assert counters["pairs_on_card"] == sum(r.finished_on_accelerator for r in res)
+    packer = _build.load_host(_build.PACK_SLOT_SOURCE)
+    assert counters["pack_native"] == (CHUNK_PAIRS if packer else 0)
     assert "pinned_bytes" not in counters        # the CPU's slots are not page-locked
 
 

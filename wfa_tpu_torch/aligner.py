@@ -34,7 +34,7 @@ import torch
 from . import native
 from .ops import _build, engine_cuda, engine_torch
 from .ops.engine_torch import EngineConfig, batch_to_tensors
-from .ops.packing import _ACGT, pack_batch
+from .ops.packing import _ACGT, pack_batch, pack_slot
 from .ops.traceback_torch import TracebackConfig
 from .parallel import mesh as parallel_mesh
 from .params import (
@@ -266,8 +266,28 @@ class _HostSlot:
 
     def fill(self, pats, txts, nwords: int) -> tuple[torch.Tensor, ...]:
         """Pack one chunk into the slot: (pat, txt, plen, tlen, valid), the
-        host tensors of ``batch_to_tensors`` with the same values."""
+        host tensors of ``batch_to_tensors`` with the same values.  One
+        native call packs both sides straight into the slot
+        (``packing.pack_slot``, ``csrc/pack_slot.cpp``); where its library
+        does not load or a sequence is not ``bytes``, ``pack_batch`` packs
+        each side and the arrays are copied in.  Counts ``pack_native``,
+        the pairs the native packer packed (0 on the fallback), and the
+        level ``pack_threads``, the threads it ran on."""
         n = len(pats)
+        views = (self.pat[:n], self.txt[:n], self.plen[:n], self.tlen[:n],
+                 self.valid[:n])
+        lib = _build.load_host(_build.PACK_SLOT_SOURCE)
+        if lib is not None:
+            try:
+                threads = pack_slot(lib, pats, txts, self.pat, self.txt,
+                                    self.plen, self.tlen, self.valid)
+            except TypeError:               # a sequence that is not bytes
+                pass
+            else:
+                TRACE.count("pack_native", n)
+                TRACE.level("pack_threads", threads)
+                return views
+        TRACE.count("pack_native", 0)
         pat_w, p_len, p_ok = pack_batch(pats, nwords)
         txt_w, t_len, t_ok = pack_batch(txts, nwords)
         self.pat[:n].numpy()[:] = pat_w.view(np.int32)
@@ -275,8 +295,7 @@ class _HostSlot:
         self.plen[:n].numpy()[:] = p_len
         self.tlen[:n].numpy()[:] = t_len
         self.valid[:n].numpy()[:] = p_ok & t_ok
-        return (self.pat[:n], self.txt[:n], self.plen[:n], self.tlen[:n],
-                self.valid[:n])
+        return views
 
 
 def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,

@@ -12,8 +12,10 @@ registers, shared memory, spills) is kept beside each as a ``.log`` file.
 fallback, CIGAR decoding) from the repository's ``native/*.cpp`` into
 ``build/torch_native/``, once per process: ``make -C native`` with its own
 flags, and where the host compiler has no OpenMP runtime, the same sources
-built serially.  ``load_presort`` builds and loads the presort's scan,
-``csrc/presort_scan.cpp``, into the same directory in the same two ways.
+built serially.  ``load_host`` builds and loads a host source of the port's
+own into the same directory in the same two ways, a library each:
+``csrc/presort_scan.cpp``, the presort's scan, and ``csrc/pack_slot.cpp``,
+which packs each chunk of the chunk loop straight into its page-locked slot.
 """
 from __future__ import annotations
 
@@ -43,17 +45,26 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# The host compiler's flags for the presort's scan (native/Makefile's).
-PRESORT_SOURCE = "presort_scan.cpp"
+# Host libraries built with g++ from csrc/, each one ``extern "C"`` entry
+# that returns an int: source -> (entry, argtypes).
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+PRESORT_SOURCE = "presort_scan.cpp"     # the presort's divergence scan
+PACK_SLOT_SOURCE = "pack_slot.cpp"      # the chunk loop's slot packer
+HOST_SOURCES = {
+    PRESORT_SOURCE: ("presort_scan", [_P, _P, _P, _P, _P, _I64, _I64, _P]),
+    PACK_SLOT_SOURCE: ("pack_slot", [_P, _P, _P, _P, _I64, _I64, _I64,
+                                     _P, _P, _P, _P, _P]),
+}
+# The host compiler's flags for them (native/Makefile's).
 HOST_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
                  "-Wall", "-Wextra")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _native_ok: bool | None = None
-# The presort's scan: None until first asked for, then the library or False.
-_presort: ctypes.CDLL | bool | None = None
-_presort_lock = threading.Lock()
+# The host sources' libraries, once asked for: the library or False.
+_host: dict[str, ctypes.CDLL | bool] = {}
+_host_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -216,24 +227,25 @@ def ensure_native() -> bool:
         return _native_ok
 
 
-def build_presort(openmp: bool) -> Path | None:
-    """Compile ``csrc/presort_scan.cpp`` unless built already, into a library
-    named by a hash of the source and the flags: with ``-fopenmp``, or
-    serially against ``csrc/serial_omp/omp.h``.  None where the compiler
-    fails (its output is kept beside the library as ``.log``)."""
+def build_host(source: str, openmp: bool) -> Path | None:
+    """Compile ``csrc/<source>`` (a key of ``HOST_SOURCES``) unless built
+    already, into a library named by a hash of the source and the flags:
+    with ``-fopenmp``, or serially against ``csrc/serial_omp/omp.h``.  None
+    where the compiler fails (its output is kept beside the library as
+    ``.log``)."""
     flags = HOST_CXXFLAGS + (("-fopenmp",) if openmp else
                              ("-Wno-unknown-pragmas", "-I", str(_CSRC / "serial_omp")))
     h = hashlib.sha256(" ".join(flags).encode())
-    h.update((_CSRC / PRESORT_SOURCE).read_bytes())
+    h.update((_CSRC / source).read_bytes())
     kind = "omp" if openmp else "serial"
-    so = _NATIVE_DIR / f"libpresort_scan_{kind}_{h.hexdigest()[:16]}.so"
+    so = _NATIVE_DIR / f"lib{Path(source).stem}_{kind}_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
     _NATIVE_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     try:
         proc = subprocess.run(
-            ["g++", *flags, "-o", str(tmp), str(_CSRC / PRESORT_SOURCE)],
+            ["g++", *flags, "-o", str(tmp), str(_CSRC / source)],
             capture_output=True, text=True, timeout=300,
         )
     except OSError as exc:                  # no g++ at all
@@ -247,32 +259,32 @@ def build_presort(openmp: bool) -> Path | None:
     return so
 
 
-def bind_presort(path: Path) -> ctypes.CDLL:
-    """Load a build of the presort's scan with its C signature; raises
-    ``OSError`` where it does not load."""
+def bind_host(source: str, path: Path) -> ctypes.CDLL:
+    """Load a build of ``csrc/<source>`` with its entry's C signature;
+    raises ``OSError`` where it does not load."""
     lib = ctypes.CDLL(str(path))
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.presort_scan.restype = ctypes.c_int
-    lib.presort_scan.argtypes = [p, p, p, p, p, i64, i64, p]
+    entry, argtypes = HOST_SOURCES[source]
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
     return lib
 
 
-def load_presort() -> ctypes.CDLL | None:
-    """The presort's scan, built and loaded once per process: the OpenMP
-    build, else the serial one; None where neither builds and loads.  A
-    failure here touches neither the CUDA libraries nor the native host
-    library."""
-    global _presort
-    with _presort_lock:
-        if _presort is None:
-            _presort = False
+def load_host(source: str) -> ctypes.CDLL | None:
+    """The library of ``csrc/<source>``, built and loaded once per process:
+    the OpenMP build, else the serial one; None where neither builds and
+    loads.  A failure here touches neither the CUDA libraries, the native
+    host library nor the other host sources' libraries."""
+    with _host_lock:
+        if source not in _host:
+            _host[source] = False
             for openmp in (True, False):
-                so = build_presort(openmp)
+                so = build_host(source, openmp)
                 if so is None:
                     continue
                 try:
-                    _presort = bind_presort(so)
+                    _host[source] = bind_host(source, so)
                     break
                 except OSError:             # built, but its runtime is missing
                     continue
-        return _presort or None
+        return _host[source] or None

@@ -2,7 +2,8 @@
 // compiler with no OpenMP runtime): its `#pragma omp` loops then run
 // serially, on one thread, as these calls report.  Used by the serial builds
 // of wfa_tpu_torch/ops/_build.py: wfa_tpu's native host library
-// (build_native_serial) and the presort's scan (presort_scan.cpp).
+// (build_native_serial), the presort's scan (presort_scan.cpp) and the slot
+// packer (pack_slot.cpp).
 #pragma once
 
 static inline int omp_get_max_threads(void) { return 1; }

@@ -10,11 +10,21 @@ extension is ``xor`` + ``clz / 2`` with no swizzle.
 Any non-ACGT base routes the pair to the CPU fallback, as does a sequence
 of length >= MAX_SEQ_LEN (sequence_packing_kernel.cu:54-76).
 
+``pack_slot`` is the CUDA route's packer: ``aligner._HostSlot.fill`` calls
+it once a chunk to pack the patterns and the texts straight into the
+chunk's page-locked slot, one native pass parallel over pairs
+(``ops/csrc/pack_slot.cpp``, built by ``ops/_build.load_host``) that reads
+each ``bytes`` object in place, with ``pack_batch``'s words, lengths and
+validity bit for bit.  ``pack_batch`` packs everywhere else (the plain
+engine's tiers, ``probe_order``'s probe) and is ``fill``'s fallback.
+
 ``pack_ascii`` and ``unpack_words`` pack one sequence and unpack it again
 (round-trip tests); ``pack_batch_torch`` packs a zero-padded batch that is
 already a tensor, on its own device, in plain torch ops.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -133,6 +143,45 @@ def pack_batch(
             np.ascontiguousarray(by).view(">u4").astype(np.uint32)
         ).reshape(b, content_words)
     return out, lengths, valid
+
+
+def pack_slot(lib: ctypes.CDLL, pats, txts, pat: torch.Tensor,
+              txt: torch.Tensor, plen: torch.Tensor, tlen: torch.Tensor,
+              valid: torch.Tensor) -> int:
+    """Pack ``len(pats)`` pairs into rows ``[:n]`` of the host tensors
+    ``pat``, ``txt`` (int32 [rows, nwords]), ``plen``, ``tlen`` (int32
+    [rows]) and ``valid`` (bool [rows]) with the library ``lib``
+    (``csrc/pack_slot.cpp``): the values of ``pack_batch`` on each side,
+    ``valid`` of both.  Returns the threads it ran on.  Raises
+    ``TypeError`` where a sequence is not ``bytes``."""
+    n = len(pats)
+    rows, nwords = pat.shape
+    if len(txts) != n or n > rows:
+        raise ValueError(f"{n} patterns and {len(txts)} texts for {rows} rows")
+    for name, t, dtype, shape in (
+        ("pat", pat, torch.int32, (rows, nwords)),
+        ("txt", txt, torch.int32, (rows, nwords)),
+        ("plen", plen, torch.int32, (rows,)), ("tlen", tlen, torch.int32, (rows,)),
+        ("valid", valid, torch.bool, (rows,)),
+    ):
+        if (t.device.type != "cpu" or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {dtype} {shape} on "
+                             f"the host, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    # Lengths first: len() refuses an int, which c_char_p would take as an
+    # address.  The pointer arrays point into the bytes objects themselves
+    # (ctypes keeps a reference to each while the array lives).
+    p_len = np.fromiter(map(len, pats), dtype=np.int64, count=n)
+    t_len = np.fromiter(map(len, txts), dtype=np.int64, count=n)
+    p_arr = (ctypes.c_char_p * n)()
+    p_arr[:] = pats
+    t_arr = (ctypes.c_char_p * n)()
+    t_arr[:] = txts
+    return lib.pack_slot(
+        p_arr, p_len.ctypes.data, t_arr, t_len.ctypes.data, n, nwords,
+        MAX_SEQ_LEN, pat.data_ptr(), txt.data_ptr(), plen.data_ptr(),
+        tlen.data_ptr(), valid.data_ptr(),
+    )
 
 
 def unpack_words(words: np.ndarray, length: int) -> np.ndarray:

@@ -2,7 +2,7 @@
 
 ``divergence_scores`` here gives the same float64 array as
 ``utils/presort.py::divergence_scores``, bit for bit, from one call into
-``ops/csrc/presort_scan.cpp`` (built and loaded by ``ops/_build.load_presort``),
+``ops/csrc/presort_scan.cpp`` (built and loaded by ``ops/_build.load_host``),
 parallel over pairs where the host compiler has OpenMP.  The scan reads each
 ``bytes`` object's own buffer: nothing is joined or copied.  Where the
 library cannot be built or loaded, or a sequence is not ``bytes``,
@@ -60,7 +60,7 @@ def scan(lib: ctypes.CDLL, patterns, texts, lens=None) -> tuple[np.ndarray, int]
 def divergence_scores(patterns, texts, lens=None) -> np.ndarray:
     """``utils/presort.py::divergence_scores``, computed natively where the
     library loads."""
-    lib = _build.load_presort()
+    lib = _build.load_host(_build.PRESORT_SOURCE)
     if lib is not None:
         try:
             out, threads = scan(lib, patterns, texts, lens)
