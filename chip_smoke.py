@@ -299,9 +299,9 @@ def main() -> int:
     phase("card", t0, f"{describe()}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
 
-    # ---- 2. Build: one nvcc per source, all at once ----
+    # ---- 2. Build: one nvcc per source, in turn ----
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    libs = {name: _build.build_library(name) for name in _build.SOURCES}
     for name in libs:
         _build.load_library(name)
     ptxas = "; ".join(
@@ -341,7 +341,7 @@ def main() -> int:
     require(not k3_bad, "wfa_traceback.cu spills or uses a stack: " + "; ".join(k3_bad))
     require(len(k3_regs) == 2, f"expected 2 wfa_traceback_kernel instantiations, got {k3_regs}")
     # The host library: packing, readers, the CPU fallback, CIGAR decoding.
-    require(_build.ensure_native(), "the native host library did not build")
+    require(native.available(), "the native host library did not build")
     threads = native.get_lib().wfa_cpu_num_threads()
     phase("build", t0, f"nvcc sm_90a {t_nvcc:.2f}s: {ptxas}; wfa_kernel "
           f"registers {regs}, no spills; wfa_traceback_kernel<banded> "

@@ -99,10 +99,9 @@ def _case(name):
 def builds():
     libs = {}
     for openmp in (True, False):
-        so = _build.build_host(_build.PACK_SLOT_SOURCE, openmp)
+        so = _build.build_native(openmp)
         if so is not None:
-            libs["omp" if openmp else "serial"] = _build.bind_host(
-                _build.PACK_SLOT_SOURCE, so)
+            libs["omp" if openmp else "serial"] = native._load_and_bind(str(so))
     if "serial" not in libs:
         pytest.skip("the slot packer could not be built here (no g++)")
     return libs
@@ -183,7 +182,7 @@ def test_fill_counters_and_fallback(builds, monkeypatch, kind):
     elif kind == "ndarray":
         txts = [np.frombuffer(t, dtype=np.uint8) for t in txts]
     elif kind == "no_library":
-        monkeypatch.setattr(_build, "load_host", lambda source: None)
+        monkeypatch.setattr(native, "available", lambda: False)
     slot = _dirty_slot(builds["serial"], len(pats) + 1, nwords)
     was = TRACE.on
     TRACE.enable()
@@ -198,7 +197,7 @@ def test_fill_counters_and_fallback(builds, monkeypatch, kind):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
     c = call["counters"]
-    native_pack = kind == "bytes" and _build.load_host(_build.PACK_SLOT_SOURCE)
+    native_pack = kind == "bytes" and native.available()
     assert c["pack_native"] == (len(pats) if native_pack else 0)
     if native_pack:
         assert c["pack_threads"] >= 1 and "pack_threads" in TRACE.levels

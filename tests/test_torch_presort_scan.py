@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import wfa_tpu_torch
-from wfa_tpu_torch import AlignmentOptions, Penalties, aligner
+from wfa_tpu_torch import AlignmentOptions, Penalties, aligner, native
 from wfa_tpu_torch.ops import _build
 from wfa_tpu_torch.utils import presort, presort_scan
 from wfa_tpu_torch.utils.io import read_seq_file
@@ -155,10 +155,9 @@ def _case(name):
 
 @pytest.fixture(scope="module")
 def lib():
-    found = _build.load_host(_build.PRESORT_SOURCE)
-    if found is None:
-        pytest.skip("the presort's scan could not be built here (no g++)")
-    return found
+    if not native.available():
+        pytest.skip("the native host library could not be built here (no g++)")
+    return native.get_lib()
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -176,10 +175,10 @@ def test_native_scan_equals_python(lib, name):
 def test_serial_build_equals_openmp(lib):
     builds = {}
     for openmp in (True, False):
-        so = _build.build_host(_build.PRESORT_SOURCE, openmp)
+        so = _build.build_native(openmp)
         if so is None:
             pytest.skip(f"the {'OpenMP' if openmp else 'serial'} build fails here")
-        builds[openmp] = _build.bind_host(_build.PRESORT_SOURCE, so)
+        builds[openmp] = native._load_and_bind(str(so))
     for name in ("hifi", "random10k", "mixed"):
         pats, txts, lens = _case(name)
         omp, _ = presort_scan.scan(builds[True], pats, txts, lens)
@@ -208,7 +207,7 @@ def test_falls_back_to_python(lib, monkeypatch):
     as_arrays = [bytearray(p) for p in pats]
     np.testing.assert_array_equal(
         presort_scan.divergence_scores(as_arrays, txts, lens), want)
-    monkeypatch.setattr(_build, "load_host", lambda source: None)
+    monkeypatch.setattr(native, "available", lambda: False)
     np.testing.assert_array_equal(presort_scan.divergence_scores(pats, txts, lens), want)
 
 
@@ -219,9 +218,9 @@ def test_falls_back_to_python(lib, monkeypatch):
 def test_plan_tiers_order_is_unchanged(lib, opts):
     for name in ("hifi", "random10k", "mixed"):
         pats, txts, lens = _case(name)
-        native, _ = presort_scan.scan(lib, pats, txts, lens)
+        scores, _ = presort_scan.scan(lib, pats, txts, lens)
         python = presort.divergence_scores(pats, txts, lens)
-        got = aligner._plan_tiers(lens, opts, 3000, native)
+        got = aligner._plan_tiers(lens, opts, 3000, scores)
         want = aligner._plan_tiers(lens, opts, 3000, python)
         assert [p.indices for p in got] == [p.indices for p in want]
 
@@ -236,7 +235,7 @@ def test_align_pairs_equal_with_and_without_the_library(lib, monkeypatch):
     txts += [pats[4][::-1], pats[5]]
     opts = AlignmentOptions(penalties=Penalties(2, 3, 1), max_error=400, band=25,
                             band_width=64, backend="torch", compute_cigar=True)
-    native = wfa_tpu_torch.align_pairs(pats, txts, opts)
-    monkeypatch.setattr(_build, "load_host", lambda source: None)
+    with_library = wfa_tpu_torch.align_pairs(pats, txts, opts)
+    monkeypatch.setattr(native, "available", lambda: False)
     fallback = wfa_tpu_torch.align_pairs(pats, txts, opts)
-    assert native == fallback
+    assert with_library == fallback

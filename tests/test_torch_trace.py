@@ -17,7 +17,6 @@ import torch
 import wfa_tpu_torch
 from wfa_tpu_torch import AlignmentOptions, Penalties, aligner
 from wfa_tpu_torch.cli import main
-from wfa_tpu_torch.ops import _build
 from wfa_tpu_torch.pipeline import align_pairs_pipelined
 from wfa_tpu_torch.utils.presort import MIN_PRESORT_TIER
 from wfa_tpu_torch.utils.synth import random_pairs
@@ -148,8 +147,8 @@ def test_presort_counters(monkeypatch, native):
     pats, txts = _pairs(4, 90, 110, 0.05, 7)
     pats, txts = long_pats + pats, long_txts + txts
     if not native:
-        monkeypatch.setattr(_build, "load_host", lambda source: None)
-    elif _build.load_host(_build.PRESORT_SOURCE) is None:
+        monkeypatch.setattr(wfa_tpu_torch.native, "available", lambda: False)
+    elif not wfa_tpu_torch.native.available():
         pytest.skip("the presort's scan could not be built here (no g++)")
     TRACE.enable()
     wfa_tpu_torch.align_pairs(pats, txts, BANDED)
@@ -210,7 +209,7 @@ def test_chunk_loop_spans_and_counters(monkeypatch, cigar):
     counters = call["counters"]
     assert {k: counters[k] for k in ("chunks", "depth", "peak")} == stats[0]
     assert counters["pairs_on_card"] == sum(r.finished_on_accelerator for r in res)
-    packer = _build.load_host(_build.PACK_SLOT_SOURCE)
+    packer = wfa_tpu_torch.native.available()
     assert counters["pack_native"] == (CHUNK_PAIRS if packer else 0)
     assert "pinned_bytes" not in counters        # the CPU's slots are not page-locked
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from . import native
-from .ops import _build, engine_cuda, engine_torch
+from .ops import engine_cuda, engine_torch
 from .ops.engine_torch import EngineConfig, batch_to_tensors
 from .ops.packing import _ACGT, pack_batch, pack_slot
 from .ops.traceback_torch import TracebackConfig
@@ -268,19 +268,19 @@ class _HostSlot:
         """Pack one chunk into the slot: (pat, txt, plen, tlen, valid), the
         host tensors of ``batch_to_tensors`` with the same values.  One
         native call packs both sides straight into the slot
-        (``packing.pack_slot``, ``csrc/pack_slot.cpp``); where its library
-        does not load or a sequence is not ``bytes``, ``pack_batch`` packs
-        each side and the arrays are copied in.  Counts ``pack_native``,
-        the pairs the native packer packed (0 on the fallback), and the
-        level ``pack_threads``, the threads it ran on."""
+        (``packing.pack_slot``, ``csrc/pack_slot.cpp``); where the native
+        library does not load or a sequence is not ``bytes``,
+        ``pack_batch`` packs each side and the arrays are copied in.
+        Counts ``pack_native``, the pairs the native packer packed (0 on
+        the fallback), and the level ``pack_threads``, the threads it ran
+        on."""
         n = len(pats)
         views = (self.pat[:n], self.txt[:n], self.plen[:n], self.tlen[:n],
                  self.valid[:n])
-        lib = _build.load_host(_build.PACK_SLOT_SOURCE)
-        if lib is not None:
+        if native.available():
             try:
-                threads = pack_slot(lib, pats, txts, self.pat, self.txt,
-                                    self.plen, self.tlen, self.valid)
+                threads = pack_slot(native.get_lib(), pats, txts, self.pat,
+                                    self.txt, self.plen, self.tlen, self.valid)
             except TypeError:               # a sequence that is not bytes
                 pass
             else:
@@ -593,7 +593,7 @@ def _align_pairs(patterns, texts, options) -> list[AlignmentResult]:
     lens = np.array(
         [max(len(p), len(t)) for p, t in zip(patterns, texts)], dtype=np.int64
     )
-    have_native = _build.ensure_native()
+    have_native = native.available()
     results: list[AlignmentResult | None] = [None] * n
     need_cpu = np.zeros(n, dtype=bool)
 

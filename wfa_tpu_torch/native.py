@@ -1,4 +1,4 @@
-"""ctypes bindings of the native C++ host library (``native/*.cpp``).
+"""ctypes bindings of the port's native C++ host library.
 
 The port's own copy of ``wfa_tpu/native.py``.  The library provides the host
 hot paths, mirroring the reference's native layers:
@@ -10,12 +10,15 @@ hot paths, mirroring the reference's native layers:
   ``recover_cigar_affine``).
 * ``wfa_pack_batch`` and ``wfa_read_*`` — packing and the .seq / FASTA
   readers (role of utils/sequence_reader.c).
+* ``presort_scan`` and ``pack_slot`` — the presort's divergence scan
+  (``utils/presort_scan.py``) and the chunk loop's slot packer
+  (``ops/packing.pack_slot``).
 
-The library is built from the repository's ``native/`` sources into a
-directory of the port's own, once per process, by
-``wfa_tpu_torch.ops._build.ensure_native``; this module loads that library
-and no other.  Every entry point has a Python fallback elsewhere in the
-package: ``available()`` says whether the library could be built.
+``ops._build.build_native`` builds it from the repository's ``native/``
+sources and the port's ``ops/csrc/`` host sources with one ``g++``;
+``get_lib`` loads it once per process, the OpenMP form, else the serial
+one, and logs which (``-v``).  Every entry point has a Python fallback
+elsewhere in the package: ``available()`` says whether the library loads.
 """
 from __future__ import annotations
 
@@ -26,73 +29,82 @@ import numpy as np
 
 from .ops import _build
 from .types import Penalties
+from .utils.logger import LOG
 
 
 class NativeUnavailable(RuntimeError):
     pass
 
 
-_lib: ct.CDLL | None = None
+_p, _i32, _i64 = ct.c_void_p, ct.c_int, ct.c_int64
+# Every entry of the library: name -> (restype, argtypes).
+_ENTRIES = {
+    "wfa_cpu_num_threads": (_i32, []),
+    "wfa_cpu_align_single": (_i32, [ct.c_char_p, _i32, ct.c_char_p, _i32,
+                                    _i32, _i32, _i32]),
+    "wfa_cpu_align_batch": (None, [_p, _p, _p, _p, _p, _p, _i64, _i32, _i32,
+                                   _i32, _p, _p, _i64, _p, _i32]),
+    "wfa_traceback_batch": (None, [_p, _p, _i64, _i64, _i64, _p, _i64, _p, _p,
+                                   _p, _p, _p, _p, _p, _i32, _i32, _i32, _p,
+                                   _i64, _p]),
+    "wfa_cigar_from_ops_batch": (None, [_p, _i64, _i64, _p, _p, _p, _p, _p,
+                                        _p, _p, _p, _i64, _p]),
+    "wfa_traceback_batch_packed": (None, [_p, _i64, _i64, _i64, _p, _i64,
+                                          ct.c_int32, _p, _p, _p, _p, _p, _p,
+                                          _p, _i32, _i32, _i32, _p, _i64, _p]),
+    "wfa_pack_batch": (None, [_p, _p, _p, ct.c_int32, ct.c_int32, ct.c_int32,
+                              _p, _p]),
+    "wfa_read_seq_scan": (_i64, [ct.c_char_p, ct.POINTER(ct.c_int64)]),
+    "wfa_read_seq_load": (_i64, [ct.c_char_p, _p, _p, _p, _p, _p, _i64]),
+    "wfa_read_fasta_scan": (_i64, [ct.c_char_p, ct.c_char_p,
+                                   ct.POINTER(ct.c_int64)]),
+    "wfa_read_fasta_load": (_i64, [ct.c_char_p, ct.c_char_p, _p, _p, _p, _p,
+                                   _p, _i64]),
+    "presort_scan": (_i32, [_p, _p, _p, _p, _p, _i64, _i64, _p]),
+    "pack_slot": (_i32, [_p, _p, _p, _p, _i64, _i64, _i64, _p, _p, _p, _p, _p]),
+}
+
+# The loaded library, or False once it failed to build or load.
+_lib: ct.CDLL | bool | None = None
 _lock = threading.Lock()
 
 
 def get_lib() -> ct.CDLL:
-    """The loaded library, built on first use; raises NativeUnavailable."""
+    """The loaded library, built and loaded on first use, once per process:
+    the OpenMP form, else the serial one; raises NativeUnavailable where
+    neither builds and loads."""
     global _lib
     with _lock:
         if _lib is None:
-            if not _build.ensure_native():
-                raise NativeUnavailable(
-                    f"{_build.native_library_path()} could not be built "
-                    "from native/"
-                )
-            _lib = _load_and_bind(str(_build.native_library_path()))
+            _lib = False
+            for openmp in (True, False):
+                so = _build.build_native(openmp)
+                if so is None:
+                    continue
+                try:
+                    _lib = _load_and_bind(str(so))
+                except OSError:             # built, but its runtime is missing
+                    continue
+                LOG.debug("native host library %s: %s, wfa_cpu_num_threads %d",
+                          so, "omp" if openmp else "serial",
+                          _lib.wfa_cpu_num_threads())
+                break
+        if not _lib:
+            raise NativeUnavailable(
+                "the native host library could not be built or loaded "
+                f"(the compiler's output: {_build._NATIVE_DIR}/*.log)"
+            )
         return _lib
 
 
 def _load_and_bind(path: str) -> ct.CDLL:
+    """Load a build of the library with every entry's C signature; raises
+    ``OSError`` where it does not load."""
     lib = ct.CDLL(path)
-    p, i32, i64 = ct.c_void_p, ct.c_int, ct.c_int64
-    lib.wfa_cpu_num_threads.restype = i32
-    lib.wfa_cpu_num_threads.argtypes = []
-    lib.wfa_cpu_align_single.restype = i32
-    lib.wfa_cpu_align_single.argtypes = [
-        ct.c_char_p, i32, ct.c_char_p, i32, i32, i32, i32,
-    ]
-    lib.wfa_cpu_align_batch.restype = None
-    lib.wfa_cpu_align_batch.argtypes = [
-        p, p, p, p, p, p, i64, i32, i32, i32, p, p, i64, p, i32,
-    ]
-    lib.wfa_traceback_batch.restype = None
-    lib.wfa_traceback_batch.argtypes = [
-        p, p, i64, i64, i64, p, i64, p, p,
-        p, p, p, p, p, i32, i32, i32, p, i64, p,
-    ]
-    lib.wfa_cigar_from_ops_batch.restype = None
-    lib.wfa_cigar_from_ops_batch.argtypes = [
-        p, i64, i64, p, p, p, p, p, p, p, p, i64, p,
-    ]
-    lib.wfa_traceback_batch_packed.restype = None
-    lib.wfa_traceback_batch_packed.argtypes = [
-        p, i64, i64, i64, p, i64, ct.c_int32, p, p,
-        p, p, p, p, p, i32, i32, i32, p, i64, p,
-    ]
-    lib.wfa_pack_batch.restype = None
-    lib.wfa_pack_batch.argtypes = [
-        p, p, p, ct.c_int32, ct.c_int32, ct.c_int32, p, p,
-    ]
-    lib.wfa_read_seq_scan.restype = i64
-    lib.wfa_read_seq_scan.argtypes = [ct.c_char_p, ct.POINTER(ct.c_int64)]
-    lib.wfa_read_seq_load.restype = i64
-    lib.wfa_read_seq_load.argtypes = [ct.c_char_p, p, p, p, p, p, i64]
-    lib.wfa_read_fasta_scan.restype = i64
-    lib.wfa_read_fasta_scan.argtypes = [
-        ct.c_char_p, ct.c_char_p, ct.POINTER(ct.c_int64),
-    ]
-    lib.wfa_read_fasta_load.restype = i64
-    lib.wfa_read_fasta_load.argtypes = [
-        ct.c_char_p, ct.c_char_p, p, p, p, p, p, i64,
-    ]
+    for name, (restype, argtypes) in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
     return lib
 
 

@@ -1,21 +1,23 @@
 """Build and load the port's CUDA kernels and its native host library.
 
-Each source under ``ops/csrc/`` is compiled at first use with ``nvcc`` into a
-shared library of its own with a plain C interface, loaded with ``ctypes``.
-``build_all`` starts one ``nvcc`` per source, all at once, and waits for
-them.  The libraries land in ``build/cuda/`` at the repository root, each
-named by a hash of its source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  The compiler's output (``-Xptxas -v``:
-registers, shared memory, spills) is kept beside each as a ``.log`` file.
+Each CUDA source under ``ops/csrc/`` (``SOURCES``) is compiled at its
+first use, by ``load_library``, with one ``nvcc`` into a shared library of
+its own with a plain C interface, loaded with ``ctypes``: a library that is
+never asked for is never built, and a source that does not compile breaks
+only its own.  The libraries land in ``build/cuda/`` at the repository
+root, each named by a hash of its source and the flags, so an edited source
+rebuilds and an unchanged one is reused.  The compiler's output (``-Xptxas
+-v``: registers, shared memory, spills) is kept beside each as a ``.log``
+file.
 
-``ensure_native`` builds the native host library (packing, readers, the CPU
-fallback, CIGAR decoding) from the repository's ``native/*.cpp`` into
-``build/torch_native/``, once per process: ``make -C native`` with its own
-flags, and where the host compiler has no OpenMP runtime, the same sources
-built serially.  ``load_host`` builds and loads a host source of the port's
-own into the same directory in the same two ways, a library each:
-``csrc/presort_scan.cpp``, the presort's scan, and ``csrc/pack_slot.cpp``,
-which packs each chunk of the chunk loop straight into its page-locked slot.
+``build_native`` builds the port's one native host library with one ``g++``
+command over ``NATIVE_SOURCES``: the repository's ``native/*.cpp``
+(packing, readers, the CPU fallback, CIGAR decoding) and the port's own
+host sources, ``csrc/presort_scan.cpp`` (the presort's scan) and
+``csrc/pack_slot.cpp`` (the chunk loop's slot packer).  It lands in
+``build/torch_native/``, named by its form and a hash of the flags and of
+every source, with the compiler's output beside it.  ``native.get_lib``
+loads it once per process: the OpenMP form, else the serial one.
 """
 from __future__ import annotations
 
@@ -45,26 +47,19 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Host libraries built with g++ from csrc/, each one ``extern "C"`` entry
-# that returns an int: source -> (entry, argtypes).
-_P, _I64 = ctypes.c_void_p, ctypes.c_int64
-PRESORT_SOURCE = "presort_scan.cpp"     # the presort's divergence scan
-PACK_SLOT_SOURCE = "pack_slot.cpp"      # the chunk loop's slot packer
-HOST_SOURCES = {
-    PRESORT_SOURCE: ("presort_scan", [_P, _P, _P, _P, _P, _I64, _I64, _P]),
-    PACK_SLOT_SOURCE: ("pack_slot", [_P, _P, _P, _P, _I64, _I64, _I64,
-                                     _P, _P, _P, _P, _P]),
-}
-# The host compiler's flags for them (native/Makefile's).
+# The native host library's sources: native/Makefile's SRCS, then the
+# port's own.  Each keeps its helpers in an anonymous namespace and exports
+# only ``extern "C"`` entries, so they link as one library.
+NATIVE_SOURCES = tuple(
+    _REPO / "native" / s
+    for s in ("wfa_cpu.cpp", "traceback.cpp", "reader.cpp", "packing.cpp")
+) + (_CSRC / "presort_scan.cpp", _CSRC / "pack_slot.cpp")
+# The host compiler's flags (native/Makefile's, bar -fopenmp).
 HOST_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
                  "-Wall", "-Wextra")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
-_native_ok: bool | None = None
-# The host sources' libraries, once asked for: the library or False.
-_host: dict[str, ctypes.CDLL | bool] = {}
-_host_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -85,35 +80,26 @@ def library_path(name: str) -> Path:
     return _BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source whose library does not exist yet, one ``nvcc``
-    per source, all started together; raises if any fails."""
-    paths = {name: library_path(name) for name in SOURCES}
-    todo = {name: so for name, so in paths.items() if not so.exists()}
-    if not todo:
-        return paths
+def build_library(name: str) -> Path:
+    """Compile the library ``name`` unless built already; raises with the
+    compiler's output where ``nvcc`` fails."""
+    so = library_path(name)
+    if so.exists():
+        return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    for name, so in todo.items():
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_CSRC / SOURCES[name])]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        so = todo[name]
-        so.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{SOURCES[name]} ({proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, so)
-    if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
-    return paths
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+         str(_CSRC / SOURCES[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    so.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed: {SOURCES[name]} ({proc.returncode}):\n{proc.stdout}")
+    os.replace(tmp, so)
+    return so
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
@@ -159,15 +145,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 
 def load_library(name: str = "wfa_distance") -> ctypes.CDLL:
-    """The library ``name`` (every library built on the first call), with
-    its C signatures."""
+    """The library ``name``, built on its first use, with its C
+    signatures."""
     with _lock:
         if name not in _libs:
-            for lib_name, so in build_all().items():
-                if lib_name not in _libs:
-                    lib = ctypes.CDLL(str(so))
-                    _bind(lib_name, lib)
-                    _libs[lib_name] = lib
+            lib = ctypes.CDLL(str(build_library(name)))
+            _bind(name, lib)
+            _libs[name] = lib
         return _libs[name]
 
 
@@ -191,61 +175,36 @@ def check_inputs(device, **tensors) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def native_library_path() -> Path:
-    return _NATIVE_DIR / "libwfatpu_native.so"
+def _host_flags(openmp: bool) -> tuple[str, ...]:
+    return HOST_CXXFLAGS + (("-fopenmp",) if openmp else
+                            ("-Wno-unknown-pragmas", "-I", str(_CSRC / "serial_omp")))
 
 
-def build_native_serial(build_dir: Path) -> subprocess.CompletedProcess:
-    """``make -C native`` into ``build_dir`` with native/Makefile's flags
-    minus ``-fopenmp``; ``csrc/serial_omp/omp.h`` stands in for the OpenMP
-    header, so the library's parallel loops run serially."""
-    return subprocess.run(
-        ["make", "-C", str(_REPO / "native"), f"BUILD={build_dir}",
-         "CXXFLAGS=-O3 -march=native -fPIC -std=c++17 -Wall -Wextra "
-         f"-I{_CSRC / 'serial_omp'}",
-         "LDFLAGS=-shared"],
-        capture_output=True, text=True, timeout=300,
-    )
-
-
-def ensure_native() -> bool:
-    """Whether the native host library is built, building it once per
-    process: ``make -C native`` into ``build/torch_native/`` (a no-op when
-    it is up to date), and if that fails (``-fopenmp`` needs an OpenMP
-    runtime the host compiler may lack), the serial build in its place.
-    A failed build is not retried in the same process."""
-    global _native_ok
-    with _lock:
-        if _native_ok is None:
-            proc = subprocess.run(
-                ["make", "-C", str(_REPO / "native"), f"BUILD={_NATIVE_DIR}"],
-                capture_output=True, text=True, timeout=300,
-            )
-            if proc.returncode != 0:
-                build_native_serial(_NATIVE_DIR)
-            _native_ok = native_library_path().exists()
-        return _native_ok
-
-
-def build_host(source: str, openmp: bool) -> Path | None:
-    """Compile ``csrc/<source>`` (a key of ``HOST_SOURCES``) unless built
-    already, into a library named by a hash of the source and the flags:
-    with ``-fopenmp``, or serially against ``csrc/serial_omp/omp.h``.  None
-    where the compiler fails (its output is kept beside the library as
-    ``.log``)."""
-    flags = HOST_CXXFLAGS + (("-fopenmp",) if openmp else
-                             ("-Wno-unknown-pragmas", "-I", str(_CSRC / "serial_omp")))
-    h = hashlib.sha256(" ".join(flags).encode())
-    h.update((_CSRC / source).read_bytes())
+def native_path(openmp: bool, sources=NATIVE_SOURCES) -> Path:
+    """Where the native host library of ``sources`` in the form ``openmp``
+    lives: named by a hash of the flags and of every source's bytes."""
+    h = hashlib.sha256(" ".join(_host_flags(openmp)).encode())
+    for src in sources:
+        h.update(Path(src).read_bytes())
     kind = "omp" if openmp else "serial"
-    so = _NATIVE_DIR / f"lib{Path(source).stem}_{kind}_{h.hexdigest()[:16]}.so"
+    return _NATIVE_DIR / f"libwfa_native_{kind}_{h.hexdigest()[:16]}.so"
+
+
+def build_native(openmp: bool) -> Path | None:
+    """Compile ``NATIVE_SOURCES`` into one library with one ``g++`` unless
+    built already: with ``-fopenmp``, or serially against
+    ``csrc/serial_omp/omp.h``, where each ``#pragma omp`` loop runs on one
+    thread.  None where the compiler fails (its output is kept beside the
+    library as ``.log``)."""
+    so = native_path(openmp)
     if so.exists():
         return so
     _NATIVE_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
     try:
         proc = subprocess.run(
-            ["g++", *flags, "-o", str(tmp), str(_CSRC / source)],
+            ["g++", *_host_flags(openmp), "-o", str(tmp),
+             *map(str, NATIVE_SOURCES)],
             capture_output=True, text=True, timeout=300,
         )
     except OSError as exc:                  # no g++ at all
@@ -257,34 +216,3 @@ def build_host(source: str, openmp: bool) -> Path | None:
         return None
     os.replace(tmp, so)
     return so
-
-
-def bind_host(source: str, path: Path) -> ctypes.CDLL:
-    """Load a build of ``csrc/<source>`` with its entry's C signature;
-    raises ``OSError`` where it does not load."""
-    lib = ctypes.CDLL(str(path))
-    entry, argtypes = HOST_SOURCES[source]
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    return lib
-
-
-def load_host(source: str) -> ctypes.CDLL | None:
-    """The library of ``csrc/<source>``, built and loaded once per process:
-    the OpenMP build, else the serial one; None where neither builds and
-    loads.  A failure here touches neither the CUDA libraries, the native
-    host library nor the other host sources' libraries."""
-    with _host_lock:
-        if source not in _host:
-            _host[source] = False
-            for openmp in (True, False):
-                so = build_host(source, openmp)
-                if so is None:
-                    continue
-                try:
-                    _host[source] = bind_host(source, so)
-                    break
-                except OSError:             # built, but its runtime is missing
-                    continue
-        return _host[source] or None

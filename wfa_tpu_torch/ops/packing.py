@@ -13,7 +13,7 @@ of length >= MAX_SEQ_LEN (sequence_packing_kernel.cu:54-76).
 ``pack_slot`` is the CUDA route's packer: ``aligner._HostSlot.fill`` calls
 it once a chunk to pack the patterns and the texts straight into the
 chunk's page-locked slot, one native pass parallel over pairs
-(``ops/csrc/pack_slot.cpp``, built by ``ops/_build.load_host``) that reads
+(``ops/csrc/pack_slot.cpp``, in the native host library) that reads
 each ``bytes`` object in place, with ``pack_batch``'s words, lengths and
 validity bit for bit.  ``pack_batch`` packs everywhere else (the plain
 engine's tiers, ``probe_order``'s probe) and is ``fill``'s fallback.

@@ -2,12 +2,12 @@
 
 ``divergence_scores`` here gives the same float64 array as
 ``utils/presort.py::divergence_scores``, bit for bit, from one call into
-``ops/csrc/presort_scan.cpp`` (built and loaded by ``ops/_build.load_host``),
-parallel over pairs where the host compiler has OpenMP.  The scan reads each
-``bytes`` object's own buffer: nothing is joined or copied.  Where the
-library cannot be built or loaded, or a sequence is not ``bytes``,
-``utils/presort.py`` scores the batch; it stays the oracle the tests hold
-this scan to.
+``ops/csrc/presort_scan.cpp``, an entry of the native host library
+(``native.py``), parallel over pairs where the host compiler has OpenMP.
+The scan reads each ``bytes`` object's own buffer: nothing is joined or
+copied.  Where the library cannot be built or loaded, or a sequence is not
+``bytes``, ``utils/presort.py`` scores the batch; it stays the oracle the
+tests hold this scan to.
 
 Counters of the open ``align_pairs`` call (``utils/timers.TRACE``):
 ``presort_native``, the pairs the native scan scored (those ``lens`` puts
@@ -20,7 +20,7 @@ import ctypes
 
 import numpy as np
 
-from ..ops import _build
+from .. import native
 from . import presort
 from .presort import MIN_PRESORT_TIER
 from .timers import TRACE
@@ -60,10 +60,9 @@ def scan(lib: ctypes.CDLL, patterns, texts, lens=None) -> tuple[np.ndarray, int]
 def divergence_scores(patterns, texts, lens=None) -> np.ndarray:
     """``utils/presort.py::divergence_scores``, computed natively where the
     library loads."""
-    lib = _build.load_host(_build.PRESORT_SOURCE)
-    if lib is not None:
+    if native.available():
         try:
-            out, threads = scan(lib, patterns, texts, lens)
+            out, threads = scan(native.get_lib(), patterns, texts, lens)
         except TypeError:                   # a sequence that is not bytes
             pass
         else:
