@@ -133,11 +133,11 @@ def test_native_sources_are_the_makefiles_and_the_ports():
     make = (ROOT / "native" / "Makefile").read_text()
     srcs = next(ln for ln in make.splitlines() if ln.startswith("SRCS")).split()[2:]
     csrc = ROOT / "wfa_tpu_torch" / "ops" / "csrc"
-    assert sorted(csrc.glob("*.cpp")) == sorted([csrc / "presort_scan.cpp",
-                                                 csrc / "pack_slot.cpp"])
+    ports = (csrc / "presort_scan.cpp", csrc / "pack_slot.cpp",
+             csrc / "cigar_ops.cpp")
+    assert sorted(csrc.glob("*.cpp")) == sorted(ports)
     assert _build.NATIVE_SOURCES == (
-        tuple(ROOT / "native" / s for s in srcs)
-        + (csrc / "presort_scan.cpp", csrc / "pack_slot.cpp"))
+        tuple(ROOT / "native" / s for s in srcs) + ports)
 
 
 def test_native_library_name_follows_sources_and_flags(tmp_path, monkeypatch):

@@ -414,13 +414,14 @@ def _run_tier_cuda(patterns, texts, idxs, plan, opts, max_error, band,
         cigars: list[str | None] = [None] * len(chunk)
         if cigar:
             n_ops = arr[:, 2]
-            ops_w = np.ascontiguousarray(arr[:, 4:])
+            ops_w = arr[:, 4:]
             with TRACE.span("decode"):
                 if native.available():
                     cigars, _ = native.cigar_from_ops_batch(
                         ops_w, n_ops, fin, pats, txts
                     )
                 else:
+                    TRACE.count("decode_native", 0)
                     cigars = [
                         recover_cigar_from_stream(ops_w[b], int(n_ops[b]),
                                                   pats[b], txts[b])

@@ -5,14 +5,15 @@ hot paths, mirroring the reference's native layers:
 
 * ``wfa_cpu_align_*`` — the CPU WFA fallback engine and exact oracle (role of
   utils/wfa_cpu.c over the vendored WFA2-lib).
-* ``wfa_traceback_batch*`` and ``wfa_cigar_from_ops_batch`` — CIGARs from
-  device choice tables or walked op streams (role of utils/cigar.c
-  ``recover_cigar_affine``).
+* ``wfa_traceback_batch*`` — CIGARs from the plain engine's choice tables
+  (role of utils/cigar.c ``recover_cigar_affine``).
 * ``wfa_pack_batch`` and ``wfa_read_*`` — packing and the .seq / FASTA
   readers (role of utils/sequence_reader.c).
-* ``presort_scan`` and ``pack_slot`` — the presort's divergence scan
-  (``utils/presort_scan.py``) and the chunk loop's slot packer
-  (``ops/packing.pack_slot``).
+* ``presort_scan``, ``pack_slot`` and ``cigar_from_ops`` — the presort's
+  divergence scan (``utils/presort_scan.py``), the chunk loop's slot packer
+  (``ops/packing.pack_slot``) and its CIGAR decode
+  (``cigar_from_ops_batch``: K3's walked op streams replayed into CIGARs,
+  ``ops/csrc/cigar_ops.cpp``).
 
 ``ops._build.build_native`` builds it from the repository's ``native/``
 sources and the port's ``ops/csrc/`` host sources with one ``g++``;
@@ -30,6 +31,7 @@ import numpy as np
 from .ops import _build
 from .types import Penalties
 from .utils.logger import LOG
+from .utils.timers import TRACE
 
 
 class NativeUnavailable(RuntimeError):
@@ -47,8 +49,6 @@ _ENTRIES = {
     "wfa_traceback_batch": (None, [_p, _p, _i64, _i64, _i64, _p, _i64, _p, _p,
                                    _p, _p, _p, _p, _p, _i32, _i32, _i32, _p,
                                    _i64, _p]),
-    "wfa_cigar_from_ops_batch": (None, [_p, _i64, _i64, _p, _p, _p, _p, _p,
-                                        _p, _p, _p, _i64, _p]),
     "wfa_traceback_batch_packed": (None, [_p, _i64, _i64, _i64, _p, _i64,
                                           ct.c_int32, _p, _p, _p, _p, _p, _p,
                                           _p, _i32, _i32, _i32, _p, _i64, _p]),
@@ -62,6 +62,8 @@ _ENTRIES = {
                                    _p, _i64]),
     "presort_scan": (_i32, [_p, _p, _p, _p, _p, _i64, _i64, _p]),
     "pack_slot": (_i32, [_p, _p, _p, _p, _i64, _i64, _i64, _p, _p, _p, _p, _p]),
+    "cigar_from_ops": (_i32, [_p, _i64, _i64, _p, _p, _p, _p, _p, _p, _i64,
+                              _p, _p, _p, _p]),
 }
 
 # The loaded library, or False once it failed to build or load.
@@ -293,33 +295,55 @@ def cigar_from_ops_batch(
     cigar_stride: int = 0,
 ) -> tuple[list[str | None], np.ndarray]:
     """Replay walked op streams into CIGARs (no choice table on the host);
-    a corrupt walk gives None."""
+    an unfinished pair or a corrupt walk gives None, status 0 (else 1).
+
+    One call of the library's ``cigar_from_ops`` (``ops/csrc/cigar_ops.cpp``)
+    decodes the batch, OpenMP over pairs, reading each sequence and each op
+    row in place: ``ops_words`` may be a view whose rows are apart by any
+    whole number of words, as the chunk loop's ``arr[:, 4:]``.  A sequence
+    that is not ``bytes`` is passed as ``bytes(seq)``.  Each pair gets room
+    for the most runs its stream can make, so no CIGAR overflows and
+    ``cigar_stride`` is not read; the entry moves the CIGARs together, a
+    newline after each, and one decode and one split make the list.  Counts
+    ``decode_native``, the pairs decoded, and the level ``decode_threads``,
+    the threads it ran on."""
     lib = get_lib()
-    B, OPW = ops_words.shape
-    ops_words = np.ascontiguousarray(ops_words, dtype=np.int32)
+    b, opw = ops_words.shape
+    if b == 0:
+        return [], np.zeros(0, dtype=np.int8)
+    if ops_words.dtype != np.int32 or ops_words.strides[1] != 4 or (
+            ops_words.strides[0] % 4):
+        ops_words = np.ascontiguousarray(ops_words, dtype=np.int32)
     n_ops = np.ascontiguousarray(n_ops, dtype=np.int32)
     fin8 = np.ascontiguousarray(finished, dtype=np.int8)
-    buf, p_off, t_off, p_len, t_len = _flat_seqs(patterns, texts)
-    status = np.zeros(B, dtype=np.int8)
-    if cigar_stride <= 0:
-        cigar_stride = max(64, 8 * int(n_ops.max(initial=0)) + 64)
-    cig_buf = np.zeros(B * cigar_stride, dtype=np.uint8)
-    lib.wfa_cigar_from_ops_batch(
-        _ptr(ops_words), B, OPW, _ptr(n_ops), _ptr(fin8),
-        _ptr(buf), _ptr(p_off), _ptr(t_off), _ptr(p_len), _ptr(t_len),
-        _ptr(cig_buf), cigar_stride, _ptr(status),
+    pats = [s if type(s) is bytes else bytes(s) for s in patterns]
+    txts = [s if type(s) is bytes else bytes(s) for s in texts]
+    p_len = np.fromiter(map(len, pats), dtype=np.int64, count=b)
+    t_len = np.fromiter(map(len, txts), dtype=np.int64, count=b)
+    # Room a pair: 2 n_ops + 1 runs, each of at most `width` bytes, and the
+    # separator.
+    longest = max(int(p_len.max()), int(t_len.max()), int(n_ops.max()))
+    width = len(str(longest)) + 1
+    room = (2 * np.maximum(n_ops, 0).astype(np.int64) + 1) * width + 1
+    ends = np.cumsum(room)
+    out = np.empty(int(ends[-1]), dtype=np.uint8)
+    lens = np.empty(b, dtype=np.int64)
+    status = np.empty(b, dtype=np.int8)
+    p_arr = (ct.c_char_p * b)()
+    p_arr[:] = pats
+    t_arr = (ct.c_char_p * b)()
+    t_arr[:] = txts
+    threads = lib.cigar_from_ops(
+        ops_words.ctypes.data, ops_words.strides[0] // 4, opw, _ptr(n_ops),
+        _ptr(fin8), p_arr, _ptr(p_len), t_arr, _ptr(t_len), b,
+        _ptr(ends - room), _ptr(out), _ptr(lens), _ptr(status),
     )
-    cigars = _cigars_from_buffer(cig_buf, cigar_stride, status, B)
-    over = np.flatnonzero(status == 2)
-    if over.size:  # retry the overflowing subset only
-        sub_c, sub_s = cigar_from_ops_batch(
-            ops_words[over], n_ops[over], finished[over],
-            [patterns[i] for i in over], [texts[i] for i in over],
-            cigar_stride * 4,
-        )
-        status[over] = sub_s
-        for j, i in enumerate(over):
-            cigars[i] = sub_c[j]
+    TRACE.count("decode_native", b)
+    TRACE.level("decode_threads", threads)
+    used = int(lens.sum()) + b - 1         # less the last separator
+    cigars: list[str | None] = str(out[:used], "ascii").split("\n")
+    for i in np.flatnonzero(status == 0):
+        cigars[i] = None
     return cigars, status
 
 

@@ -13,8 +13,9 @@ file.
 ``build_native`` builds the port's one native host library with one ``g++``
 command over ``NATIVE_SOURCES``: the repository's ``native/*.cpp``
 (packing, readers, the CPU fallback, CIGAR decoding) and the port's own
-host sources, ``csrc/presort_scan.cpp`` (the presort's scan) and
-``csrc/pack_slot.cpp`` (the chunk loop's slot packer).  It lands in
+host sources, ``csrc/presort_scan.cpp`` (the presort's scan),
+``csrc/pack_slot.cpp`` (the chunk loop's slot packer) and
+``csrc/cigar_ops.cpp`` (the chunk loop's CIGAR decode).  It lands in
 ``build/torch_native/``, named by its form and a hash of the flags and of
 every source, with the compiler's output beside it.  ``native.get_lib``
 loads it once per process: the OpenMP form, else the serial one.
@@ -53,7 +54,8 @@ NVCC_FLAGS = (
 NATIVE_SOURCES = tuple(
     _REPO / "native" / s
     for s in ("wfa_cpu.cpp", "traceback.cpp", "reader.cpp", "packing.cpp")
-) + (_CSRC / "presort_scan.cpp", _CSRC / "pack_slot.cpp")
+) + tuple(_CSRC / s
+          for s in ("presort_scan.cpp", "pack_slot.cpp", "cigar_ops.cpp"))
 # The host compiler's flags (native/Makefile's, bar -fopenmp).
 HOST_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
                  "-Wall", "-Wextra")
